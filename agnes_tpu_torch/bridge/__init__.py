@@ -1,0 +1,1 @@
+"""bridge layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""crypto layer of the PyTorch port (see the package docstring)."""

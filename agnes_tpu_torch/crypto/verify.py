@@ -1,0 +1,547 @@
+"""Fused Ed25519 verify: prologue, CUDA kernel wrapper and the kernel's
+plain PyTorch version (twin of `agnes_tpu.crypto.pallas_verify`).
+
+Boundary (kept from `_verify_jit`, so the kernel can be diffed alone):
+
+  prologue (`prologue`, plain torch ops, as XLA ran it around the
+  Pallas call): SHA-512 of R || A || M, Barrett reduction mod L, the
+  S < L check, y/sign split of A and R, signed 5-bit recoding of S and
+  k into 52 digits each;
+
+  kernel (`verify_signed5`): y limbs [20, B] int32 and sign bits [B]
+  int32 of A and R, digit planes [52, B] int32 of S and k  ->  one int32
+  ok per lane.  It computes exactly the verdicts of
+  `pallas_verify._verify_kernel(signed5=True)`: reject a non-canonical
+  y (>= p), a non-residue x^2 and x = 0 with sign = 1, then check the
+  cofactored equation [8]([S]B - [k]A) == [8]R projectively.
+
+`verify_signed5` launches the CUDA kernel
+(`agnes_tpu_torch/csrc/ed25519_verify.cu`) for tensors on the card and
+runs `verify_plain` — a transcription of the Pallas kernel body over
+[20, B] tensors with the same 20 x 13-bit signed int32 limbs — for
+tensors on the CPU.  Nothing else: a failed build or launch raises.
+`LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
+
+import torch
+
+from agnes_tpu_torch import cuda_build
+from agnes_tpu_torch.crypto import ed25519_ref as ref
+from agnes_tpu_torch.crypto import scalar as S
+from agnes_tpu_torch.crypto import sha512
+from agnes_tpu_torch.crypto.field import (
+    BITS,
+    FOLD,
+    I32,
+    LMASK,
+    NLIMBS,
+    P,
+    SUB_K,
+    bytes32_to_limbs,
+    to_limbs,
+)
+
+N_WIN5 = 52                # 5-bit signed windows covering 260 bits
+N_ENT = 17                 # table entries 0..16 for signed 5-bit digits
+KERNEL = "ed25519_verify"  # csrc/ed25519_verify.cu
+
+# kernel launches since import (reset by callers that count a run)
+LAUNCHES = 0
+
+# Work of one lane of the CUDA kernel, counted from its structure (it is
+# data-independent: fixed windows, fixed chains).  A multiply makes 100
+# 32x32->64-bit products, a squaring 55; each product is counted as two
+# int32 operations.  chip_smoke.py turns this into the kernel's bound.
+FIELD_MULS_PER_LANE = 1757
+FIELD_SQRS_PER_LANE = 1574
+INT32_OPS_PER_LANE = 2 * (100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQRS_PER_LANE)
+# bytes a lane moves: y limbs and sign of A and R, two digit planes, ok
+BYTES_PER_LANE = 4 * (2 * NLIMBS + 2 + 2 * N_WIN5 + 1)
+
+_D = to_limbs(ref.D)
+_D2 = to_limbs(2 * ref.D % P)
+_SQRT_M1 = to_limbs(ref.SQRT_M1)
+_P_LIMBS = to_limbs(P)
+
+
+# --- plain field ops on [20, ...batch] tensors ------------------------------
+# The Pallas kernel's radix-2^13 signed-limb scheme, limb axis FIRST
+# (see field_jax's docstring for the int32 bound proofs).
+
+
+def _add_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
+    return a + torch.tensor(list(c), dtype=I32,
+                            device=a.device).reshape((NLIMBS,)
+                                                     + (1,) * (a.ndim - 1))
+
+
+def _vp(r: torch.Tensor, fold) -> torch.Tensor:
+    """One vectorized carry pass along the leading limb axis."""
+    lo = r & LMASK
+    hi = r >> BITS                 # arithmetic: signed carries
+    if fold is None:
+        lo = torch.cat([lo[:-1], r[-1:]], dim=0)
+        shift = torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], dim=0)
+        return lo + shift
+    shift = torch.cat([hi[-1:] * fold, hi[:-1]], dim=0)
+    return lo + shift
+
+
+def _carry(r: torch.Tensor, passes: int) -> torch.Tensor:
+    for _ in range(passes):
+        r = _vp(r, FOLD)
+    return r
+
+
+def _fadd(a, b):
+    return _carry(a + b, 2)
+
+
+def _fsub(a, b):
+    return _carry(a - b, 2)
+
+
+def _mul_cols(cols: torch.Tensor) -> torch.Tensor:
+    """[40, ...] raw schoolbook columns -> weak [20, ...] limbs."""
+    lo, hi = cols[:NLIMBS], cols[NLIMBS:]
+    for _ in range(2):
+        hi = _vp(hi, None)
+    return _carry(lo + FOLD * hi, 3)
+
+
+def _fmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product as shifted multiply-adds (no integer matmul)."""
+    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
+    for i in range(NLIMBS):
+        cols[i:i + NLIMBS] += a[i] * b
+    return _mul_cols(cols)
+
+
+def _fsqr(a: torch.Tensor) -> torch.Tensor:
+    """Squaring: the symmetric half of the schoolbook (2 a_i a_j)."""
+    a2 = a + a
+    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
+    for i in range(NLIMBS):
+        cols[2 * i] += a[i] * a[i]
+    for i in range(NLIMBS - 1):
+        cols[2 * i + 1:NLIMBS + i] += a2[i] * a[i + 1:]
+    return _mul_cols(cols)
+
+
+def _fmul_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
+    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
+    for i, ci in enumerate(c):
+        if ci:
+            cols[i:i + NLIMBS] += ci * a
+    return _mul_cols(cols)
+
+
+def _pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
+    for _ in range(k):
+        x = _fsqr(x)
+    return x
+
+
+def _sqrt_chain(z: torch.Tensor) -> torch.Tensor:
+    """z^((p-5)/8) = z^(2^252 - 3): 252 squarings + 11 muls."""
+    t0 = _fsqr(z)                       # 2
+    t1 = _fmul(z, _pow2k(t0, 2))        # 9
+    t0 = _fmul(t0, t1)                  # 11
+    t0 = _fmul(t1, _fsqr(t0))           # 31 = 2^5 - 1
+    t1 = _pow2k(t0, 5)
+    t0 = _fmul(t1, t0)                  # 2^10 - 1
+    t1 = _pow2k(t0, 10)
+    t1 = _fmul(t1, t0)                  # 2^20 - 1
+    t2 = _pow2k(t1, 20)
+    t1 = _fmul(t2, t1)                  # 2^40 - 1
+    t1 = _pow2k(t1, 10)
+    t0 = _fmul(t1, t0)                  # 2^50 - 1
+    t1 = _pow2k(t0, 50)
+    t1 = _fmul(t1, t0)                  # 2^100 - 1
+    t2 = _pow2k(t1, 100)
+    t1 = _fmul(t2, t1)                  # 2^200 - 1
+    t1 = _pow2k(t1, 50)
+    t0 = _fmul(t1, t0)                  # 2^250 - 1
+    return _fmul(_pow2k(t0, 2), z)      # 2^252 - 3
+
+
+def _one(shape, device) -> torch.Tensor:
+    one = torch.zeros(shape, dtype=I32, device=device)
+    one[0] = 1
+    return one
+
+
+def _chain_seq(r: torch.Tensor):
+    """Sequential signed carry chain over the limb axis."""
+    c = torch.zeros_like(r[0])
+    outs = []
+    for k in range(r.shape[0]):
+        t = r[k] + c
+        outs.append(t & LMASK)
+        c = t >> BITS
+    return torch.stack(outs, dim=0), c
+
+
+def _geq_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
+    """a >= c on strict limbs; returns [batch] bool."""
+    gt = torch.zeros(a.shape[1:], dtype=torch.bool, device=a.device)
+    eq = torch.ones(a.shape[1:], dtype=torch.bool, device=a.device)
+    for k in reversed(range(NLIMBS)):
+        gt = gt | (eq & (a[k] > c[k]))
+        eq = eq & (a[k] == c[k])
+    return gt | eq
+
+
+def _sub_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
+    """a - c for a >= c, strict limbs in/out (sequential borrow)."""
+    cy = torch.zeros_like(a[0])
+    outs = []
+    for k in range(NLIMBS):
+        t = a[k] - c[k] + cy
+        outs.append(t & LMASK)
+        cy = t >> BITS
+    return torch.stack(outs, dim=0)
+
+
+def _freeze(a: torch.Tensor) -> torch.Tensor:
+    """Canonical representative in [0, p): add 64p, exact-normalize,
+    conditional-subtract ladder."""
+    r = _add_const(a, SUB_K)
+    for _ in range(3):
+        r = _vp(r, FOLD)
+    r, c = _chain_seq(r)
+    r = torch.cat([r[0:1] + FOLD * c[None], r[1:]], dim=0)
+    r, c2 = _chain_seq(r)
+    r = torch.cat([r[0:1] + FOLD * c2[None], r[1:]], dim=0)
+    for m in (16, 8, 4, 2, 1, 1):
+        mp = to_limbs(m * P)
+        ge = _geq_const(r, mp)
+        r = torch.where(ge[None], _sub_const(r, mp), r)
+    return r
+
+
+def _is_zero(a: torch.Tensor) -> torch.Tensor:
+    return (_freeze(a) == 0).all(dim=0)
+
+
+def _where_fe(mask: torch.Tensor, a, b):
+    return torch.where(mask[None], a, b)
+
+
+# --- plain point ops (extended coords; each coord [20, ...batch]) ----------
+
+
+def _pt_dbl(X, Y, Z, want_t: bool):
+    """dbl-2008-hwcd for a=-1: 4 squarings + 3 (4 with T) muls."""
+    A = _fsqr(X)
+    B = _fsqr(Y)
+    ZZ = _fsqr(Z)
+    C = ZZ + ZZ                              # raw; consumed by a sub
+    E = _fsub(_fsub(_fsqr(_fadd(X, Y)), A), B)
+    G = _fsub(B, A)
+    F = _fsub(G, C)
+    H = _carry(-(A + B), 2)
+    X3 = _fmul(E, F)
+    Y3 = _fmul(G, H)
+    Z3 = _fmul(F, G)
+    T3 = _fmul(E, H) if want_t else None
+    return X3, Y3, Z3, T3
+
+
+def _pt_add_niels(X1, Y1, Z1, T1, n_ypx, n_ymx, n_t2d, n_z2, want_t: bool):
+    """extended + projective-niels entry (Y2+X2, Y2-X2, 2d*T2, 2*Z2);
+    n_z2=None for affine entries (Z2=1 -> D = Z1+Z1)."""
+    A = _fmul(_fsub(Y1, X1), n_ymx)
+    B = _fmul(_fadd(Y1, X1), n_ypx)
+    C = _fmul(T1, n_t2d)
+    D = _fmul(Z1, n_z2) if n_z2 is not None else _fadd(Z1, Z1)
+    E = _fsub(B, A)
+    F = _fsub(D, C)
+    G = _fadd(D, C)
+    H = _fadd(B, A)
+    X3 = _fmul(E, F)
+    Y3 = _fmul(G, H)
+    Z3 = _fmul(F, G)
+    T3 = _fmul(E, H) if want_t else None
+    return X3, Y3, Z3, T3
+
+
+def _pt_add_ext(p, q, want_t: bool):
+    """Unified extended+extended addition (table build only)."""
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    A = _fmul(_fsub(Y1, X1), _fsub(Y2, X2))
+    B = _fmul(_fadd(Y1, X1), _fadd(Y2, X2))
+    C = _fmul_const(_fmul(T1, T2), _D2)
+    ZZ = _fmul(Z1, Z2)
+    D = ZZ + ZZ
+    E = _fsub(B, A)
+    F = _carry(D - C, 2)
+    G = _carry(D + C, 2)
+    H = _fadd(B, A)
+    return (_fmul(E, F), _fmul(G, H), _fmul(F, G),
+            _fmul(E, H) if want_t else None)
+
+
+def _to_niels(p):
+    """Extended point -> (Y+X, Y-X, 2d*T, 2Z) projective-niels entry."""
+    X, Y, Z, T = p
+    return (_fadd(Y, X), _fsub(Y, X), _fmul_const(T, _D2), _fadd(Z, Z))
+
+
+def _decompress(y: torch.Tensor, sign: torch.Tensor):
+    """Strict y limbs [20, B] + sign [B] -> (x limbs, ok [B] bool)."""
+    one = _one(y.shape, y.device)
+    ok = ~_geq_const(y, _P_LIMBS)
+    y2 = _fsqr(y)
+    u = _fsub(y2, one)
+    v = _carry(_fmul_const(y2, _D) + one, 2)
+    v3 = _fmul(v, _fsqr(v))
+    uv3 = _fmul(u, v3)
+    uv7 = _fmul(uv3, _fmul(v3, v))
+    x = _fmul(uv3, _sqrt_chain(uv7))
+    vx2 = _fmul(v, _fsqr(x))
+    root_direct = _is_zero(vx2 - u)
+    root_flip = _is_zero(vx2 + u)
+    x = _where_fe(root_flip, _fmul_const(x, _SQRT_M1), x)
+    ok &= root_direct | root_flip
+    xf = _freeze(x)
+    x_is_zero = (xf == 0).all(dim=0)
+    flip = (xf[0] & 1) != sign
+    x = _where_fe(flip, _fsub(torch.zeros_like(xf), xf), xf)
+    ok &= ~(x_is_zero & (sign == 1))
+    return x, ok
+
+
+# --- fixed-base multiples of B (host constants) -----------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _btable_ints() -> Tuple[Tuple[int, int, int], ...]:
+    """((y+x), (y-x), 2dxy) mod p of the affine e*B, e = 0..16."""
+    out = []
+    for e in range(N_ENT):
+        if e == 0:
+            x, y = 0, 1
+        else:
+            pt = ref._mul(e, ref.BASE)
+            zi = ref._inv(pt[2])
+            x, y = pt[0] * zi % P, pt[1] * zi % P
+        out.append(((y + x) % P, (y - x) % P, 2 * ref.D * x * y % P))
+    return tuple(out)
+
+
+def _btable13(device) -> torch.Tensor:
+    """[17, 3, 20] int32: the B table in the plain version's limbs."""
+    return torch.tensor([[to_limbs(c) for c in ent] for ent in _btable_ints()],
+                        dtype=I32, device=device)
+
+
+def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
+                 sr: torch.Tensor, sdig: torch.Tensor,
+                 kdig: torch.Tensor) -> torch.Tensor:
+    """The kernel body in plain PyTorch: the same inputs and verdicts as
+    `verify_signed5` (ok [B] int32), on any device.  Mirrors
+    `_verify_kernel(signed5=True)` step for step; the table picks are
+    gathers instead of the Pallas select tree."""
+    dev = ya.device
+    B = ya.shape[1]
+    one = _one((NLIMBS, B), dev)
+    zero = torch.zeros_like(one)
+
+    xa, ok_a = _decompress(ya, sa)
+    xr, ok_r = _decompress(yr, sr)
+
+    # -A extended (Z=1): negate x and t
+    nax = _fsub(zero, xa)
+    na = (nax, ya, one, _fmul(nax, ya))
+
+    # table[e] = e * (-A) in projective-niels form
+    ext = [None] * N_ENT
+    ext[1] = na
+    ext[2] = _pt_dbl(*na[:3], want_t=True)
+    for e in range(3, N_ENT, 2):
+        ext[e] = _pt_add_ext(ext[e - 2], ext[2], want_t=True)
+    for e in range(4, N_ENT, 2):
+        p = ext[e // 2]
+        ext[e] = _pt_dbl(p[0], p[1], p[2], want_t=True)
+    id_niels = (one, one, zero, _fadd(one, one))
+    atab = torch.stack([torch.stack(id_niels)]
+                       + [torch.stack(_to_niels(ext[e]))
+                          for e in range(1, N_ENT)])     # [17, 4, 20, B]
+    del ext
+    btab = _btable13(dev)                                # [17, 3, 20]
+
+    X, Y, Z = zero, one, one
+    for i in range(N_WIN5):
+        for _ in range(4):
+            X, Y, Z, _ = _pt_dbl(X, Y, Z, want_t=False)
+        X, Y, Z, T = _pt_dbl(X, Y, Z, want_t=True)
+        kd, sd = kdig[i], sdig[i]
+        neg_k, neg_s = kd < 0, sd < 0
+        ek, es = kd.abs(), sd.abs()
+        idx = ek.long().reshape(1, 1, 1, B).expand(1, 4, NLIMBS, B)
+        n_ypx, n_ymx, n_t2d, n_z2 = torch.gather(atab, 0, idx)[0]
+        # -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)
+        n_ypx, n_ymx = (_where_fe(neg_k, n_ymx, n_ypx),
+                        _where_fe(neg_k, n_ypx, n_ymx))
+        n_t2d = _where_fe(neg_k, _carry(-n_t2d, 2), n_t2d)
+        X, Y, Z, T = _pt_add_niels(X, Y, Z, T, n_ypx, n_ymx, n_t2d, n_z2,
+                                   want_t=True)
+        b_ypx, b_ymx, b_t2d = btab[es.long()].permute(1, 2, 0)
+        b_ypx, b_ymx = (_where_fe(neg_s, b_ymx, b_ypx),
+                        _where_fe(neg_s, b_ypx, b_ymx))
+        b_t2d = _where_fe(neg_s, _carry(-b_t2d, 2), b_t2d)
+        X, Y, Z, _ = _pt_add_niels(X, Y, Z, T, b_ypx, b_ymx, b_t2d, None,
+                                   want_t=False)
+
+    # cofactored equality: [8]Q == [8]R, projectively
+    RX, RY, RZ = xr, yr, one
+    for _ in range(3):
+        X, Y, Z, _ = _pt_dbl(X, Y, Z, want_t=False)
+        RX, RY, RZ, _ = _pt_dbl(RX, RY, RZ, want_t=False)
+    eqx = _is_zero(_fmul(X, RZ) - _fmul(RX, Z))
+    eqy = _is_zero(_fmul(Y, RZ) - _fmul(RY, Z))
+    return (ok_a & ok_r & eqx & eqy).to(I32)
+
+
+# --- the CUDA kernel --------------------------------------------------------
+
+# radix 2^25.5: limb i holds 26 bits (even i) or 25 bits (odd i)
+_W25 = [26 - (i & 1) for i in range(10)]
+
+
+def _limbs25(x: int) -> List[int]:
+    out = []
+    for w in _W25:
+        out.append(x & ((1 << w) - 1))
+        x >>= w
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_consts() -> Tuple[int, ...]:
+    """The kernel's constant block (540 int32, radix-2^25.5 limbs):
+    d, 2d, sqrt(-1), then the B table's 17 x (y+x, y-x, 2dxy)."""
+    out = _limbs25(ref.D) + _limbs25(2 * ref.D % P) + _limbs25(ref.SQRT_M1)
+    for ent in _btable_ints():
+        for c in ent:
+            out += _limbs25(c)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load(KERNEL)
+    fn = lib.ag_ed25519_verify_signed5
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _consts_tensor(device: torch.device) -> torch.Tensor:
+    """The constant block on `device`, uploaded once (read-only)."""
+    return torch.tensor(kernel_consts(), dtype=I32, device=device)
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.dtype != I32:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes int32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def verify_signed5(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
+                   sr: torch.Tensor, sdig: torch.Tensor,
+                   kdig: torch.Tensor) -> torch.Tensor:
+    """Per-lane verdicts (ok [B] int32) from the kernel boundary inputs.
+    CUDA tensors launch the kernel; CPU tensors run `verify_plain`."""
+    global LAUNCHES
+    dev = ya.device
+    B = ya.shape[1] if ya.ndim == 2 else -1
+    for name, t, shape in (("ya", ya, (NLIMBS, B)), ("sa", sa, (B,)),
+                           ("yr", yr, (NLIMBS, B)), ("sr", sr, (B,)),
+                           ("sdig", sdig, (N_WIN5, B)),
+                           ("kdig", kdig, (N_WIN5, B))):
+        _check(name, t, shape, dev)
+    if dev.type == "cpu":
+        return verify_plain(ya, sa, yr, sr, sdig, kdig)
+    if dev.type != "cuda":
+        raise ValueError(f"verify_signed5: unsupported device {dev}")
+    out = torch.empty((B,), dtype=I32, device=dev)
+    if B == 0:
+        return out
+    lib = _lib()
+    consts = _consts_tensor(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ag_ed25519_verify_signed5(
+            ya.data_ptr(), sa.data_ptr(), yr.data_ptr(), sr.data_ptr(),
+            sdig.data_ptr(), kdig.data_ptr(), consts.data_ptr(),
+            out.data_ptr(), B, stream)
+    if err != 0:
+        raise RuntimeError(f"ed25519 verify kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out
+
+
+# --- the XLA prologue of _verify_jit, in plain torch ops --------------------
+
+
+def _digits52_signed(limbs: torch.Tensor) -> torch.Tensor:
+    """[B, 20] scalar limbs -> [52, B] SIGNED 5-bit digits in [-16, 15],
+    most significant window first (carry recoding; safe for any
+    32-byte value, see the JAX twin)."""
+    raw = []
+    for j in range(N_WIN5):
+        lo = 5 * j
+        li, off = lo // BITS, lo % BITS
+        d = limbs[..., li] >> off
+        if off > BITS - 5 and li + 1 < NLIMBS:
+            d = d | (limbs[..., li + 1] << (BITS - off))
+        raw.append(d & 31)
+    carry = torch.zeros_like(raw[0])
+    outs = []
+    for j in range(N_WIN5):              # lsb-first carry walk
+        t = raw[j] + carry
+        ge = t >= 16
+        outs.append(torch.where(ge, t - 32, t))
+        carry = ge.to(t.dtype)
+    return torch.stack(outs[::-1], dim=0)
+
+
+def _ysign(b32: torch.Tensor):
+    """[B, 32] byte values -> (y limbs [B, 20], sign [B])."""
+    b = b32.to(I32)
+    sign = b[..., 31] >> 7
+    b = torch.cat([b[..., :31], (b[..., 31] & 0x7F)[..., None]], dim=-1)
+    return bytes32_to_limbs(b), sign
+
+
+def prologue(pub: torch.Tensor, sig: torch.Tensor, msg_blocks: torch.Tensor):
+    """(pub [B,32], sig [B,64], blocks [B,n,32]) -> the kernel's inputs
+    (ya, sa, yr, sr, sdig, kdig), contiguous in the kernel's layout, and
+    ok_s [B] bool (S < L)."""
+    k = S.barrett_reduce(S.digest_to_limbs(sha512.sha512_blocks(msg_blocks)))
+    s_limbs = S.scalar_from_bytes32(sig[..., 32:])
+    ok_s = S.is_canonical(s_limbs)
+    ya, sa = _ysign(pub)
+    yr, sr = _ysign(sig[..., :32])
+    return ((ya.t().contiguous(), sa.contiguous(),
+             yr.t().contiguous(), sr.contiguous(),
+             _digits52_signed(s_limbs).contiguous(),
+             _digits52_signed(k).contiguous()), ok_s)

@@ -1,0 +1,111 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source `csrc/<name>.cu` exposes a plain C entry point and is
+compiled by `nvcc` for Hopper (`sm_90a`) into a shared library that
+`ctypes` loads — no PyTorch headers, so a build takes seconds.  The
+library lands in `csrc/build/<name>-<source hash>.so` at first use (the
+directory is generated, never committed); the `ptxas -v` report
+(registers, spill bytes) is kept beside it in `<name>-<hash>.log`.
+
+Nothing is built while a module is imported: `load` runs inside the
+first launch.  `build_all` starts one `nvcc` per source at once, so a
+run that needs every kernel pays for the slowest build, not the sum.
+A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = CSRC / "build"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# name -> seconds the nvcc build took in this process (0.0 when cached)
+build_seconds: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def _paths(name: str):
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    stem = BUILD / f"{name}-{digest}"
+    return src, stem.with_suffix(".so"), stem.with_suffix(".log")
+
+
+def _start(name: str):
+    """Start the nvcc build of one source; None when already built."""
+    src, lib, log = _paths(name)
+    if lib.exists():
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+           "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, cmd, tmp, lib, log, time.perf_counter()
+
+
+def _finish(name: str, job) -> None:
+    proc, cmd, tmp, lib, log, t0 = job
+    out, _ = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
+    log.write_text(" ".join(cmd) + "\n" + out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):"
+                           f"\n{out}")
+    os.replace(tmp, lib)
+
+
+def build_all(names: List[str]) -> None:
+    """Build every named kernel, one nvcc process each, all at once."""
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            if job is None:
+                build_seconds.setdefault(n, 0.0)
+            else:
+                _finish(n, job)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built on first use."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _lock:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(str(_paths(name)[1]))
+        return _loaded[name]
+
+
+def ptxas_report(name: str) -> List[str]:
+    """The `ptxas -v` lines (registers, spills) of the built kernel."""
+    log = _paths(name)[2]
+    if not log.exists():
+        return []
+    keys = ("registers", "spill", "stack")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keys)]

@@ -1,0 +1,1 @@
+"""device layer of the PyTorch port (see the package docstring)."""

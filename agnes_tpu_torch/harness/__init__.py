@@ -1,0 +1,1 @@
+"""harness layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,62 @@
+"""The port stands alone: a fresh interpreter imports `agnes_tpu_torch`,
+runs the CPU slice (fused honest heights and one signed height through
+the bridge), and never loads `jax` or any `agnes_tpu` module.  Without a
+GPU its entry points refuse to run unless given device="cpu".
+"""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import sys
+
+import torch
+
+import agnes_tpu_torch
+import agnes_tpu_torch.convert
+from agnes_tpu_torch.bridge.ingest import VoteBatcher
+from agnes_tpu_torch.harness import fixtures as fx
+from agnes_tpu_torch.harness.device_driver import DeviceDriver
+
+d = DeviceDriver(4, 4, advance_height=True, device="cpu")
+d.run_heights_fused(2)
+assert (d.state.height == 2).all() and d.stats.decisions_total == 8
+
+I, V = 2, 4
+seeds = fx.deterministic_seeds(V)
+bat = VoteBatcher(I, V, n_slots=4, device="cpu")
+for typ in (0, 1):
+    bat.add_arrays(*fx.full_mesh_cols(I, V, seeds, 0, typ, 5,
+                                      forge_validator=2))
+phases, lanes = bat.build_phases_device(fx.validator_pubkeys(seeds),
+                                        phase_offset=1)
+s = DeviceDriver(I, V, advance_height=True, device="cpu")
+s.step_seq_signed([s.empty_phase()] + [p for p, _ in phases], lanes)
+assert s.all_decided() and s.rejected_signature_device == 2 * I
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
+assert not bad, bad
+
+if not torch.cuda.is_available():
+    for make in (lambda: DeviceDriver(4, 4),
+                 lambda: VoteBatcher(4, 4, n_slots=4)):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("an entry point ran without a GPU")
+print("PORT-OK")
+"""
+
+
+def test_port_imports_no_jax_and_runs_cpu_slice():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "PORT-OK" in r.stdout
