@@ -15,14 +15,19 @@ quorum surfaces through `drain_host_events`.
 the phases plus `SignedLanes` whose verdicts `consensus_step_seq_signed`
 computes with the CUDA verify kernel and ANDs into the masks on the
 card.  `build_phases(pubkeys)` verifies on the batcher's device first
-(the port's own `verify_batch`) and drops failures.
+and drops failures: per lane (`verify_mode="lanes"`, the port's own
+`verify_batch`) or by the MSM batch check with bisection to per-lane
+leaves (`verify_mode="msm"`, `crypto/msm.py`).  The verdicts are the
+same; the mode is a throughput choice.  In MSM mode
+`build_phases_device` takes the host-verified build and returns
+(phases, None), as the twin does.
 
 Port notes: device tensors are built from pinned host memory with
 non-blocking copies (the JAX twin's `jnp.asarray` sites); lanes are not
 rounded up to a power of two (nothing recompiles per shape here), though
 `lane_floor` still pads.  Waiting for later slices: the serve dedup
-columns, the dense (sharded) lane layout, native-phase adoption, the MSM
-verify mode, evidence extraction and the `max_votes` cap.
+columns, the dense (sharded) lane layout, native-phase adoption,
+evidence extraction and the `max_votes` cap.
 """
 
 from __future__ import annotations
@@ -143,7 +148,16 @@ class VoteBatcher:
     phases on `device` (default "cuda"; raises when absent)."""
 
     def __init__(self, n_instances: int, n_validators: int, n_slots: int,
-                 n_rounds: int = 4, device="cuda"):
+                 n_rounds: int = 4, device="cuda", verify_mode: str = "lanes",
+                 msm_leaf: int = 64):
+        if verify_mode not in ("lanes", "msm"):
+            raise ValueError(f"verify_mode must be lanes|msm: {verify_mode}")
+        if int(msm_leaf) < 2:
+            # leaf 1 would make the adaptive bisection midpoint
+            # degenerate (lo + n//2 == lo) on a failing lane
+            raise ValueError(f"msm_leaf must be >= 2: {msm_leaf}")
+        self.verify_mode = verify_mode
+        self.msm_leaf = int(msm_leaf)
         self.device = resolve_device(device)
         self.I, self.V = n_instances, n_validators
         self.W = n_rounds
@@ -242,10 +256,14 @@ class VoteBatcher:
 
     def _verify(self, b: _Batch, pubkeys: np.ndarray) -> np.ndarray:
         """Batch-verify on the batcher's device; returns [N] bool."""
+        from agnes_tpu_torch.crypto import msm
         from agnes_tpu_torch.crypto.ed25519 import verify_batch
 
         pub, sig, blocks = (self._to_device(a) for a in
                             self._pack_verify_inputs_np(b, pubkeys))
+        if self.verify_mode == "msm":
+            return msm.verify_batch_adaptive(pub, sig, blocks,
+                                             leaf=self.msm_leaf)
         return verify_batch(pub, sig, blocks).cpu().numpy()
 
     # -- host fallback for past rounds ---------------------------------------
@@ -482,7 +500,7 @@ class VoteBatcher:
         entry phase).  Feed both to DeviceDriver.step_seq_signed.
 
         Falls back to the HOST-verified build — (phases, None) — when
-        the traffic is not the honest dense shape.  `lane_floor` pads
+        the traffic is not the honest dense shape, and in MSM mode.  `lane_floor` pads
         the lanes to at least that many with copies of lane 0 aimed at
         an out-of-range phase (dropped on the device; `real` False)."""
         phases, cat, pidx = self._build_device_common(pubkeys)
@@ -511,8 +529,8 @@ class VoteBatcher:
     def _build_device_common(self, pubkeys: np.ndarray):
         """Shared device-verify build core: (phases, cat, phase_idx)
         with 0-based numpy phase indices, or (host-verified phases,
-        None, None) on the fallback paths."""
-        if not self._device_verify_eligible():
+        None, None) on the fallback paths (ineligible traffic, MSM mode)."""
+        if self.verify_mode != "lanes" or not self._device_verify_eligible():
             return self.build_phases(pubkeys), None, None
         self._emitted_lane_groups = []
         phases = self.build_phases(pubkeys, _device_verify=True)

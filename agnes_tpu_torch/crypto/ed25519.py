@@ -5,9 +5,9 @@ COFACTORED semantics, framework-wide (rationale: `ed25519_ref.verify`):
 A and R must decode canonically, S < L, and [8]([S]B - [k]A) == [8]R.
 The JAX twin routes to the fused Pallas kernel on the accelerator; the
 port always takes the fused path of `crypto/verify.py`: the prologue in
-plain torch ops, then `verify_signed5`, which launches the hand-written
-CUDA kernel for tensors on the card and runs its plain PyTorch version
-for tensors on the CPU — nothing else.
+plain torch ops, then `verify_signed5` (or `verify_w4`), which launches
+the hand-written CUDA kernel for tensors on the card and runs its plain
+PyTorch version for tensors on the CPU — nothing else.
 """
 
 from __future__ import annotations
@@ -21,14 +21,18 @@ from agnes_tpu_torch.crypto import verify as V
 
 
 def verify_batch(pub: torch.Tensor, sig: torch.Tensor,
-                 msg_blocks: torch.Tensor) -> torch.Tensor:
+                 msg_blocks: torch.Tensor, window: int = 5) -> torch.Tensor:
     """pub [B, 32] int32 bytes, sig [B, 64] int32 bytes, msg_blocks
     [B, n_blocks, 32] uint32 words (as int32 bit patterns) of the padded
-    R || A || M.  Returns [B] bool."""
+    R || A || M.  Returns [B] bool.  `window` picks the kernel instance,
+    as `pallas_verify.verify_batch_pallas` does: 5 (signed 5-bit digits,
+    the default) or 4 (unsigned 4-bit digits); the verdicts are the
+    same."""
     if pub.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.bool, device=pub.device)
-    args, ok_s = V.prologue(pub, sig, msg_blocks)
-    return (V.verify_signed5(*args) > 0) & ok_s
+    args, ok_s = V.prologue(pub, sig, msg_blocks, window)
+    kernel = V.verify_signed5 if window == 5 else V.verify_w4
+    return (kernel(*args) > 0) & ok_s
 
 
 def pack_verify_inputs(pubs: List[bytes], msgs: List[bytes],

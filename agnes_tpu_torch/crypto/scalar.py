@@ -106,3 +106,11 @@ def scalar_from_bytes32(b: torch.Tensor) -> torch.Tensor:
 def is_canonical(s: torch.Tensor) -> torch.Tensor:
     """s < L (the RFC 8032 §5.1.7 malleability check)."""
     return ~geq(s, _l_limbs(s))
+
+
+def bits_msb_first(s: torch.Tensor, n_bits: int = 260) -> torch.Tensor:
+    """[..., n_limbs] limbs -> [n_bits, ...] bool, most significant bit
+    first (the Shamir loop's input)."""
+    idx = torch.arange(n_bits - 1, -1, -1, device=s.device)
+    bits = (s[..., idx // BITS] >> (idx % BITS).to(s.dtype)) & 1
+    return bits.bool().movedim(-1, 0)

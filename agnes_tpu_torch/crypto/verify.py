@@ -1,38 +1,41 @@
-"""Fused Ed25519 verify: prologue, CUDA kernel wrapper and the kernel's
+"""Fused Ed25519 verify: prologue, CUDA kernel wrappers and the kernel's
 plain PyTorch version (twin of `agnes_tpu.crypto.pallas_verify`).
 
 Boundary (kept from `_verify_jit`, so the kernel can be diffed alone):
 
   prologue (`prologue`, plain torch ops, as XLA ran it around the
   Pallas call): SHA-512 of R || A || M, Barrett reduction mod L, the
-  S < L check, y/sign split of A and R, signed 5-bit recoding of S and
-  k into 52 digits each;
+  S < L check, y/sign split of A and R, recoding of S and k into digits:
+  52 signed 5-bit digits each (window 5) or 65 unsigned 4-bit digits
+  each (window 4);
 
-  kernel (`verify_signed5`): y limbs [20, B] int32 and sign bits [B]
-  int32 of A and R, digit planes [52, B] int32 of S and k  ->  one int32
-  ok per lane.  It computes exactly the verdicts of
-  `pallas_verify._verify_kernel(signed5=True)`: reject a non-canonical
-  y (>= p), a non-residue x^2 and x = 0 with sign = 1, then check the
-  cofactored equation [8]([S]B - [k]A) == [8]R projectively.
+  kernel (`verify_signed5`, `verify_w4`): y limbs [20, B] int32 and sign
+  bits [B] int32 of A and R, digit planes [52 or 65, B] int32 of S and k
+  ->  one int32 ok per lane.  It computes exactly the verdicts of
+  `pallas_verify._verify_kernel` (signed5=True and signed5=False):
+  reject a non-canonical y (>= p), a non-residue x^2 and x = 0 with
+  sign = 1, then check the cofactored equation [8]([S]B - [k]A) == [8]R
+  projectively.
 
-`verify_signed5` launches the CUDA kernel
-(`agnes_tpu_torch/csrc/ed25519_verify.cu`) for tensors on the card and
-runs `verify_plain` — a transcription of the Pallas kernel body over
-[20, B] tensors with the same 20 x 13-bit signed int32 limbs — for
-tensors on the CPU.  Nothing else: a failed build or launch raises.
-`LAUNCHES` counts kernel launches.
+Both wrappers launch the CUDA kernel
+(`agnes_tpu_torch/csrc/ed25519_verify.cu`, a template over the window)
+for tensors on the card and run `verify_plain` — a transcription of the
+Pallas kernel body over [20, B] tensors with the same 20 x 13-bit signed
+int32 limbs — for tensors on the CPU.  Nothing else: a failed build or
+launch raises.  `LAUNCHES` and `LAUNCHES_W4` count kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from agnes_tpu_torch import cuda_build
 from agnes_tpu_torch.crypto import ed25519_ref as ref
+from agnes_tpu_torch.crypto import field as F
 from agnes_tpu_torch.crypto import scalar as S
 from agnes_tpu_torch.crypto import sha512
 from agnes_tpu_torch.crypto.field import (
@@ -44,15 +47,20 @@ from agnes_tpu_torch.crypto.field import (
     P,
     SUB_K,
     bytes32_to_limbs,
+    limbs25,
     to_limbs,
 )
 
 N_WIN5 = 52                # 5-bit signed windows covering 260 bits
 N_ENT = 17                 # table entries 0..16 for signed 5-bit digits
+N_WIN4 = 65                # 4-bit unsigned windows covering 260 bits
+N_ENT4 = 16                # table entries 0..15 for 4-bit digits
 KERNEL = "ed25519_verify"  # csrc/ed25519_verify.cu
 
-# kernel launches since import (reset by callers that count a run)
+# kernel launches since import, by window (reset by callers that count
+# a run)
 LAUNCHES = 0
+LAUNCHES_W4 = 0
 
 # Work of one lane of the CUDA kernel, counted from its structure (it is
 # data-independent: fixed windows, fixed chains).  A multiply makes 100
@@ -63,6 +71,15 @@ FIELD_SQRS_PER_LANE = 1574
 INT32_OPS_PER_LANE = 2 * (100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQRS_PER_LANE)
 # bytes a lane moves: y limbs and sign of A and R, two digit planes, ok
 BYTES_PER_LANE = 4 * (2 * NLIMBS + 2 + 2 * N_WIN5 + 1)
+# window 4: one -A table entry fewer (a niels add of 8 multiplies and its
+# conversion, 9), and 65 windows of 3 plain + 1 T doubling (13
+# multiplies, 16 squarings), a -A add (8) and a B add (6) in place of 52
+# windows of 4 + 1 doublings (16, 20), 8 and 6: the same squarings
+FIELD_MULS_PER_LANE_W4 = (FIELD_MULS_PER_LANE - 9 - N_WIN5 * (16 + 8 + 6)
+                          + N_WIN4 * (13 + 8 + 6))
+INT32_OPS_PER_LANE_W4 = 2 * (100 * FIELD_MULS_PER_LANE_W4
+                             + 55 * FIELD_SQRS_PER_LANE)
+BYTES_PER_LANE_W4 = 4 * (2 * NLIMBS + 2 + 2 * N_WIN4 + 1)
 
 _D = to_limbs(ref.D)
 _D2 = to_limbs(2 * ref.D % P)
@@ -82,15 +99,14 @@ def _add_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
 
 
 def _vp(r: torch.Tensor, fold) -> torch.Tensor:
-    """One vectorized carry pass along the leading limb axis."""
-    lo = r & LMASK
+    """One vectorized carry pass along the leading limb axis: the
+    fused multiply-add form of `field._vpass` (fold=None: exact, the top
+    limb intact)."""
     hi = r >> BITS                 # arithmetic: signed carries
-    if fold is None:
-        lo = torch.cat([lo[:-1], r[-1:]], dim=0)
-        shift = torch.cat([torch.zeros_like(hi[:1]), hi[:-1]], dim=0)
-        return lo + shift
-    shift = torch.cat([hi[-1:] * fold, hi[:-1]], dim=0)
-    return lo + shift
+    lo_scale, up_scale = F._pass_scales(r.shape[0], fold, r.device)
+    shape = (-1,) + (1,) * (r.ndim - 1)
+    return torch.addcmul(r, hi, lo_scale.view(shape)).addcmul_(
+        hi.roll(1, 0), up_scale.view(shape))
 
 
 def _carry(r: torch.Tensor, passes: int) -> torch.Tensor:
@@ -108,38 +124,30 @@ def _fsub(a, b):
 
 
 def _mul_cols(cols: torch.Tensor) -> torch.Tensor:
-    """[40, ...] raw schoolbook columns -> weak [20, ...] limbs."""
-    lo, hi = cols[:NLIMBS], cols[NLIMBS:]
+    """[39, ...] raw schoolbook columns -> weak [20, ...] limbs (the high
+    half gets a zero row 39, as in the Pallas kernel)."""
+    lo = cols[:NLIMBS]
+    hi = torch.cat([cols[NLIMBS:], torch.zeros_like(cols[:1])])
     for _ in range(2):
         hi = _vp(hi, None)
     return _carry(lo + FOLD * hi, 3)
 
 
 def _fmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook product as shifted multiply-adds (no integer matmul)."""
-    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
-    for i in range(NLIMBS):
-        cols[i:i + NLIMBS] += a[i] * b
-    return _mul_cols(cols)
+    """The product's columns by `field.columns` with the limb axes first,
+    so every operation runs over the contiguous batch axes."""
+    return _mul_cols(F.columns(a, b, dim=0))
 
 
 def _fsqr(a: torch.Tensor) -> torch.Tensor:
-    """Squaring: the symmetric half of the schoolbook (2 a_i a_j)."""
-    a2 = a + a
-    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
-    for i in range(NLIMBS):
-        cols[2 * i] += a[i] * a[i]
-    for i in range(NLIMBS - 1):
-        cols[2 * i + 1:NLIMBS + i] += a2[i] * a[i + 1:]
-    return _mul_cols(cols)
+    """Squaring: the product's columns are the symmetric schoolbook's
+    (2 a_i a_j + a_k^2), the same integers."""
+    return _fmul(a, a)
 
 
 def _fmul_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
-    cols = a.new_zeros((2 * NLIMBS,) + a.shape[1:])
-    for i, ci in enumerate(c):
-        if ci:
-            cols[i:i + NLIMBS] += ci * a
-    return _mul_cols(cols)
+    c = torch.tensor(list(c), dtype=I32, device=a.device)
+    return _fmul(a, c.view((NLIMBS,) + (1,) * (a.ndim - 1)))
 
 
 def _pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -149,7 +157,7 @@ def _pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _sqrt_chain(z: torch.Tensor) -> torch.Tensor:
-    """z^((p-5)/8) = z^(2^252 - 3): 252 squarings + 11 muls."""
+    """z^((p-5)/8) = z^(2^252 - 3): 251 squarings + 11 muls."""
     t0 = _fsqr(z)                       # 2
     t1 = _fmul(z, _pow2k(t0, 2))        # 9
     t0 = _fmul(t0, t1)                  # 11
@@ -345,11 +353,14 @@ def _btable13(device) -> torch.Tensor:
 
 def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
                  sr: torch.Tensor, sdig: torch.Tensor,
-                 kdig: torch.Tensor) -> torch.Tensor:
+                 kdig: torch.Tensor, window: int = 5) -> torch.Tensor:
     """The kernel body in plain PyTorch: the same inputs and verdicts as
-    `verify_signed5` (ok [B] int32), on any device.  Mirrors
-    `_verify_kernel(signed5=True)` step for step; the table picks are
-    gathers instead of the Pallas select tree."""
+    `verify_signed5` (window 5) or `verify_w4` (window 4), ok [B] int32,
+    on any device.  Mirrors `_verify_kernel(signed5=window == 5)` step
+    for step; the table picks are gathers instead of the Pallas select
+    tree."""
+    signed5 = _window(window) == 5
+    n_ent, n_win = (N_ENT, N_WIN5) if signed5 else (N_ENT4, N_WIN4)
     dev = ya.device
     B = ya.shape[1]
     one = _one((NLIMBS, B), dev)
@@ -363,41 +374,41 @@ def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
     na = (nax, ya, one, _fmul(nax, ya))
 
     # table[e] = e * (-A) in projective-niels form
-    ext = [None] * N_ENT
+    ext = [None] * n_ent
     ext[1] = na
     ext[2] = _pt_dbl(*na[:3], want_t=True)
-    for e in range(3, N_ENT, 2):
+    for e in range(3, n_ent, 2):
         ext[e] = _pt_add_ext(ext[e - 2], ext[2], want_t=True)
-    for e in range(4, N_ENT, 2):
+    for e in range(4, n_ent, 2):
         p = ext[e // 2]
         ext[e] = _pt_dbl(p[0], p[1], p[2], want_t=True)
     id_niels = (one, one, zero, _fadd(one, one))
     atab = torch.stack([torch.stack(id_niels)]
                        + [torch.stack(_to_niels(ext[e]))
-                          for e in range(1, N_ENT)])     # [17, 4, 20, B]
+                          for e in range(1, n_ent)])  # [n_ent, 4, 20, B]
     del ext
-    btab = _btable13(dev)                                # [17, 3, 20]
+    btab = _btable13(dev)[:n_ent]                        # [n_ent, 3, 20]
 
     X, Y, Z = zero, one, one
-    for i in range(N_WIN5):
-        for _ in range(4):
+    for i in range(n_win):
+        for _ in range(window - 1):
             X, Y, Z, _ = _pt_dbl(X, Y, Z, want_t=False)
         X, Y, Z, T = _pt_dbl(X, Y, Z, want_t=True)
         kd, sd = kdig[i], sdig[i]
-        neg_k, neg_s = kd < 0, sd < 0
-        ek, es = kd.abs(), sd.abs()
-        idx = ek.long().reshape(1, 1, 1, B).expand(1, 4, NLIMBS, B)
+        idx = kd.abs().long().reshape(1, 1, 1, B).expand(1, 4, NLIMBS, B)
         n_ypx, n_ymx, n_t2d, n_z2 = torch.gather(atab, 0, idx)[0]
-        # -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)
-        n_ypx, n_ymx = (_where_fe(neg_k, n_ymx, n_ypx),
-                        _where_fe(neg_k, n_ypx, n_ymx))
-        n_t2d = _where_fe(neg_k, _carry(-n_t2d, 2), n_t2d)
+        b_ypx, b_ymx, b_t2d = btab[sd.abs().long()].permute(1, 2, 0)
+        if signed5:
+            # -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)
+            neg_k, neg_s = kd < 0, sd < 0
+            n_ypx, n_ymx = (_where_fe(neg_k, n_ymx, n_ypx),
+                            _where_fe(neg_k, n_ypx, n_ymx))
+            n_t2d = _where_fe(neg_k, _carry(-n_t2d, 2), n_t2d)
+            b_ypx, b_ymx = (_where_fe(neg_s, b_ymx, b_ypx),
+                            _where_fe(neg_s, b_ypx, b_ymx))
+            b_t2d = _where_fe(neg_s, _carry(-b_t2d, 2), b_t2d)
         X, Y, Z, T = _pt_add_niels(X, Y, Z, T, n_ypx, n_ymx, n_t2d, n_z2,
                                    want_t=True)
-        b_ypx, b_ymx, b_t2d = btab[es.long()].permute(1, 2, 0)
-        b_ypx, b_ymx = (_where_fe(neg_s, b_ymx, b_ypx),
-                        _where_fe(neg_s, b_ypx, b_ymx))
-        b_t2d = _where_fe(neg_s, _carry(-b_t2d, 2), b_t2d)
         X, Y, Z, _ = _pt_add_niels(X, Y, Z, T, b_ypx, b_ymx, b_t2d, None,
                                    want_t=False)
 
@@ -413,36 +424,24 @@ def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
 
 # --- the CUDA kernel --------------------------------------------------------
 
-# radix 2^25.5: limb i holds 26 bits (even i) or 25 bits (odd i)
-_W25 = [26 - (i & 1) for i in range(10)]
-
-
-def _limbs25(x: int) -> List[int]:
-    out = []
-    for w in _W25:
-        out.append(x & ((1 << w) - 1))
-        x >>= w
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def kernel_consts() -> Tuple[int, ...]:
     """The kernel's constant block (540 int32, radix-2^25.5 limbs):
     d, 2d, sqrt(-1), then the B table's 17 x (y+x, y-x, 2dxy)."""
-    out = _limbs25(ref.D) + _limbs25(2 * ref.D % P) + _limbs25(ref.SQRT_M1)
+    out = limbs25(ref.D) + limbs25(2 * ref.D % P) + limbs25(ref.SQRT_M1)
     for ent in _btable_ints():
         for c in ent:
-            out += _limbs25(c)
+            out += limbs25(c)
     return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL)
-    fn = lib.ag_ed25519_verify_signed5
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_void_p, ctypes.c_int64,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.ag_ed25519_verify_signed5, lib.ag_ed25519_verify_w4):
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -464,38 +463,64 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def verify_signed5(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
-                   sr: torch.Tensor, sdig: torch.Tensor,
-                   kdig: torch.Tensor) -> torch.Tensor:
-    """Per-lane verdicts (ok [B] int32) from the kernel boundary inputs.
-    CUDA tensors launch the kernel; CPU tensors run `verify_plain`."""
-    global LAUNCHES
+def _window(window: int) -> int:
+    if window not in (4, 5):
+        raise ValueError(f"window must be 4 or 5: {window}")
+    return window
+
+
+def _verify_call(window: int, ya, sa, yr, sr, sdig, kdig):
+    """(ok [B] int32, whether the kernel was launched)."""
+    n_win = N_WIN5 if _window(window) == 5 else N_WIN4
     dev = ya.device
     B = ya.shape[1] if ya.ndim == 2 else -1
     for name, t, shape in (("ya", ya, (NLIMBS, B)), ("sa", sa, (B,)),
                            ("yr", yr, (NLIMBS, B)), ("sr", sr, (B,)),
-                           ("sdig", sdig, (N_WIN5, B)),
-                           ("kdig", kdig, (N_WIN5, B))):
+                           ("sdig", sdig, (n_win, B)),
+                           ("kdig", kdig, (n_win, B))):
         _check(name, t, shape, dev)
     if dev.type == "cpu":
-        return verify_plain(ya, sa, yr, sr, sdig, kdig)
+        return verify_plain(ya, sa, yr, sr, sdig, kdig, window), False
     if dev.type != "cuda":
-        raise ValueError(f"verify_signed5: unsupported device {dev}")
+        raise ValueError(f"ed25519 verify: unsupported device {dev}")
     out = torch.empty((B,), dtype=I32, device=dev)
     if B == 0:
-        return out
+        return out, False
     lib = _lib()
+    fn = (lib.ag_ed25519_verify_signed5 if window == 5
+          else lib.ag_ed25519_verify_w4)
     consts = _consts_tensor(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ag_ed25519_verify_signed5(
-            ya.data_ptr(), sa.data_ptr(), yr.data_ptr(), sr.data_ptr(),
-            sdig.data_ptr(), kdig.data_ptr(), consts.data_ptr(),
-            out.data_ptr(), B, stream)
+        err = fn(ya.data_ptr(), sa.data_ptr(), yr.data_ptr(), sr.data_ptr(),
+                 sdig.data_ptr(), kdig.data_ptr(), consts.data_ptr(),
+                 out.data_ptr(), B, stream)
     if err != 0:
-        raise RuntimeError(f"ed25519 verify kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"ed25519 verify kernel (window {window}) launch "
+                           f"failed: CUDA error {err}")
+    return out, True
+
+
+def verify_signed5(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
+                   sr: torch.Tensor, sdig: torch.Tensor,
+                   kdig: torch.Tensor) -> torch.Tensor:
+    """Per-lane verdicts (ok [B] int32) from the kernel boundary inputs
+    with 52 signed 5-bit digit planes.  CUDA tensors launch the kernel;
+    CPU tensors run `verify_plain`."""
+    global LAUNCHES
+    out, launched = _verify_call(5, ya, sa, yr, sr, sdig, kdig)
+    LAUNCHES += launched
+    return out
+
+
+def verify_w4(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
+              sr: torch.Tensor, sdig: torch.Tensor,
+              kdig: torch.Tensor) -> torch.Tensor:
+    """`verify_signed5` with 65 unsigned 4-bit digit planes (the
+    kernel's window-4 instance)."""
+    global LAUNCHES_W4
+    out, launched = _verify_call(4, ya, sa, yr, sr, sdig, kdig)
+    LAUNCHES_W4 += launched
     return out
 
 
@@ -524,6 +549,20 @@ def _digits52_signed(limbs: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs[::-1], dim=0)
 
 
+def _digits65(limbs: torch.Tensor) -> torch.Tensor:
+    """[B, 20] scalar limbs -> [65, B] unsigned 4-bit digits, most
+    significant window first."""
+    outs = []
+    for j in range(N_WIN4):
+        lo = 4 * j
+        li, off = lo // BITS, lo % BITS
+        d = limbs[..., li] >> off
+        if off > BITS - 4 and li + 1 < NLIMBS:
+            d = d | (limbs[..., li + 1] << (BITS - off))
+        outs.append(d & 15)
+    return torch.stack(outs[::-1], dim=0)
+
+
 def _ysign(b32: torch.Tensor):
     """[B, 32] byte values -> (y limbs [B, 20], sign [B])."""
     b = b32.to(I32)
@@ -532,10 +571,13 @@ def _ysign(b32: torch.Tensor):
     return bytes32_to_limbs(b), sign
 
 
-def prologue(pub: torch.Tensor, sig: torch.Tensor, msg_blocks: torch.Tensor):
+def prologue(pub: torch.Tensor, sig: torch.Tensor, msg_blocks: torch.Tensor,
+             window: int = 5):
     """(pub [B,32], sig [B,64], blocks [B,n,32]) -> the kernel's inputs
     (ya, sa, yr, sr, sdig, kdig), contiguous in the kernel's layout, and
-    ok_s [B] bool (S < L)."""
+    ok_s [B] bool (S < L).  The digit planes are for `window` (5: signed,
+    52; 4: unsigned, 65)."""
+    digits = _digits52_signed if _window(window) == 5 else _digits65
     k = S.barrett_reduce(S.digest_to_limbs(sha512.sha512_blocks(msg_blocks)))
     s_limbs = S.scalar_from_bytes32(sig[..., 32:])
     ok_s = S.is_canonical(s_limbs)
@@ -543,5 +585,4 @@ def prologue(pub: torch.Tensor, sig: torch.Tensor, msg_blocks: torch.Tensor):
     yr, sr = _ysign(sig[..., :32])
     return ((ya.t().contiguous(), sa.contiguous(),
              yr.t().contiguous(), sr.contiguous(),
-             _digits52_signed(s_limbs).contiguous(),
-             _digits52_signed(k).contiguous()), ok_s)
+             digits(s_limbs).contiguous(), digits(k).contiguous()), ok_s)

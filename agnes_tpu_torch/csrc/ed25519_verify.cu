@@ -1,15 +1,20 @@
 // Fused cofactored Ed25519 verify, one thread per lane, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel agnes_tpu/crypto/pallas_verify.py::_verify_kernel
-// (line 409) in its signed5=True variant: the same boundary and verdicts.
+// (line 409) in both its variants, as a template over the window width W:
+// W = 5 is signed5=True (52 signed 5-bit windows over a 17-entry table),
+// W = 4 is signed5=False (65 unsigned 4-bit windows over a 16-entry
+// table).  The same boundary and verdicts as the TPU kernel.
 //
 //   in : ya, yr  [20, B] int32  y of A and R as strict 13-bit limbs
 //        sa, sr  [B]     int32  sign bit (bit 255) of A and R
-//        sdig, kdig [52, B] int32  signed 5-bit digits of S and k in
-//                                 [-16, 15], most significant window first
+//        sdig, kdig [nw, B] int32  digits of S and k, most significant
+//                                 window first: W = 5, nw = 52 signed in
+//                                 [-16, 15]; W = 4, nw = 65 in [0, 15]
 //        consts  [540]   int32  d, 2d, sqrt(-1) and the 17-entry affine
 //                                 niels table of e*B (radix-2^25.5 limbs,
-//                                 made by crypto/verify.py::kernel_consts)
+//                                 made by crypto/verify.py::kernel_consts;
+//                                 W = 4 reads the first 16 entries)
 //   out: ok      [B]     int32  1 iff A and R decode (canonical y < p,
 //                                 x^2 a residue, not x = 0 with sign 1)
 //                                 and [8]([S]B - [k]A) == [8]R
@@ -17,326 +22,41 @@
 // The S < L check and the prologue (SHA-512, mod-L reduction, digit
 // recoding) stay outside, as in the Pallas version.
 //
-// Design.  Field elements are 10 signed int32 limbs in radix 2^25.5
-// (limb i holds 26 bits for even i, 25 for odd i) kept in registers;
-// products accumulate in int64.  Every field value is kept "carried"
-// (|limb| <= 2^25 for even, <= ~2^24 for odd limbs), so any sum or
-// difference of two carried values (|limb| <= 2^26) is a valid multiply
-// input: 19 * 2^26 < 2^31 and 10 products of 2^27 * 2^30.3 stay under
-// 2^63.  Right shifts of negative signed integers are arithmetic (floor)
-// under nvcc, as C++20 defines them; the carries below rely on that
-// deliberately.  Outside `__CUDACC__` the lane math is plain C++, so a
-// host compiler can check it against big-integer arithmetic.
+// Design.  The field and curve code is fe25519.cuh (radix-2^25.5 limbs
+// in registers, int64 products).  Per lane: decompress A and R (sqrt
+// addition chain), build the projective-niels table of e*(-A) in local
+// memory, run the windows of joint [S]B - [k]A (W doublings, one -A
+// table add, one fixed-B table add each; the B table sits in shared
+// memory; a negative digit of W = 5 negates its entry, a swap and one
+// negation), then x8 both sides and compare projectively.  The ragged
+// edge is masked here (no padding of B).
 //
-// Per lane: decompress A and R (sqrt addition chain), build the 17-entry
-// projective-niels table of e*(-A) in local memory, run 52 signed 5-bit
-// windows of joint [S]B - [k]A (5 doublings, one -A table add, one
-// fixed-B table add each; the B table sits in shared memory), then x8
-// both sides and compare projectively.  The ragged edge is masked here
-// (no padding of B).
-//
-// Bound on this card: integer ALU work.  Per lane the kernel does 1,757
-// field multiplies (100 32x32->64-bit products each) and 1,574 squarings
-// (55 products each): 262,270 products, counted as 524,540 int32
-// operations (a 64-bit product is two 32-bit words of work).  Memory is
-// 588 bytes a lane.  chip_smoke.py derives the bound from these counts
-// and the card's SM count and clock.  This first version is the simple
-// one: no shared-memory tiling of the -A table, no multi-lane ILP.
+// Bound on this card: integer ALU work.  Per lane the W = 5 kernel does
+// 1,757 field multiplies (100 32x32->64-bit products each) and 1,574
+// squarings (55 products each): 262,270 products, counted as 524,540
+// int32 operations (a 64-bit product is two 32-bit words of work);
+// memory is 588 bytes a lane.  The W = 4 kernel has one table entry
+// fewer (-9 multiplies) and 65 windows of 4 doublings instead of 52 of 5:
+// 1,943 multiplies and 1,574 squarings, 561,740 int32 operations, 692
+// bytes a lane.  chip_smoke.py derives the bounds from these counts
+// (crypto/verify.py) and the card's SM count and clock.  This first
+// version is the simple one: no shared-memory tiling of the -A table, no
+// multi-lane ILP.
 
-#include <stdint.h>
-
-#if defined(__CUDACC__)
-#include <cuda_runtime.h>
-#define AG_DEV __device__ __forceinline__
-#else
-#define AG_DEV static inline
-#endif
-
-#define AG_UNROLL _Pragma("unroll")
-#define AG_NOUNROLL _Pragma("unroll 1")
+#include "fe25519.cuh"
 
 namespace ag {
 
-constexpr int kWin = 52;        // signed 5-bit windows
-constexpr int kEnt = 17;        // table entries 0..16
-constexpr int kConsts = 30 + kEnt * 30;
+constexpr int kConsts = 30 + 17 * 30;
 
-struct fe { int32_t v[10]; };
-struct ext { fe X, Y, Z, T; };            // extended coordinates
-struct niels { fe ypx, ymx, t2d, z2; };   // (Y+X, Y-X, 2dT, 2Z)
+template <int W> struct Window;
+template <> struct Window<5> { static constexpr int kWin = 52, kEnt = 17; };
+template <> struct Window<4> { static constexpr int kWin = 65, kEnt = 16; };
 
-// -- field: GF(2^255 - 19), radix 2^25.5 ------------------------------------
-
-AG_DEV void fe_zero(fe& h) { AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = 0; }
-AG_DEV void fe_one(fe& h) { fe_zero(h); h.v[0] = 1; }
-AG_DEV void fe_copy(fe& h, const fe& f) { AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = f.v[i]; }
-
-AG_DEV void fe_load(fe& h, const int32_t* c) {
-  AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = c[i];
-}
-
-// Rounding carry of 64-bit columns into carried limbs (|col| < 2^62.5).
-AG_DEV void fe_carry64(fe& h, int64_t* t) {
-  AG_UNROLL for (int i = 0; i < 9; ++i) {
-    const int w = 26 - (i & 1);
-    const int64_t c = (t[i] + ((int64_t)1 << (w - 1))) >> w;
-    t[i] -= c * ((int64_t)1 << w);
-    t[i + 1] += c;
-  }
-  int64_t c = (t[9] + ((int64_t)1 << 24)) >> 25;
-  t[9] -= c * ((int64_t)1 << 25);
-  t[0] += c * 19;                       // 2^255 = 19 (mod p)
-  c = (t[0] + ((int64_t)1 << 25)) >> 26;
-  t[0] -= c * ((int64_t)1 << 26);
-  t[1] += c;
-  AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = (int32_t)t[i];
-}
-
-// Rounding carry of int32 limbs (|limb| < 2^29), e.g. after an add.
-AG_DEV void fe_carry32(fe& h) {
-  AG_UNROLL for (int i = 0; i < 9; ++i) {
-    const int w = 26 - (i & 1);
-    const int32_t c = (h.v[i] + (1 << (w - 1))) >> w;
-    h.v[i] -= c * (1 << w);
-    h.v[i + 1] += c;
-  }
-  int32_t c = (h.v[9] + (1 << 24)) >> 25;
-  h.v[9] -= c * (1 << 25);
-  h.v[0] += c * 19;
-  c = (h.v[0] + (1 << 25)) >> 26;
-  h.v[0] -= c * (1 << 26);
-  h.v[1] += c;
-}
-
-AG_DEV void fe_add(fe& h, const fe& f, const fe& g) {
-  AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = f.v[i] + g.v[i];
-  fe_carry32(h);
-}
-
-AG_DEV void fe_sub(fe& h, const fe& f, const fe& g) {
-  AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = f.v[i] - g.v[i];
-  fe_carry32(h);
-}
-
-AG_DEV void fe_neg(fe& h, const fe& f) {
-  AG_UNROLL for (int i = 0; i < 10; ++i) h.v[i] = -f.v[i];
-}
-
-// h = f * g.  Limb i sits at bit ceil(25.5 i), so f_i g_j lands in
-// column i+j with an extra factor 2 when i and j are both odd, and
-// columns >= 10 wrap to i+j-10 with factor 19.
-AG_DEV void fe_mul(fe& h, const fe& f, const fe& g) {
-  int32_t g19[10], f2[10];
-  AG_UNROLL for (int i = 0; i < 10; ++i) { g19[i] = 19 * g.v[i]; f2[i] = 2 * f.v[i]; }
-  int64_t t[10];
-  AG_UNROLL for (int k = 0; k < 10; ++k) t[k] = 0;
-  AG_UNROLL for (int i = 0; i < 10; ++i) {
-    AG_UNROLL for (int j = 0; j < 10; ++j) {
-      const int32_t a = ((i & j) & 1) ? f2[i] : f.v[i];
-      const int32_t b = (i + j >= 10) ? g19[j] : g.v[j];
-      t[(i + j) % 10] += (int64_t)a * b;
-    }
-  }
-  fe_carry64(h, t);
-}
-
-// h = f^2: the upper triangle of fe_mul, off-diagonal terms doubled.
-AG_DEV void fe_sq(fe& h, const fe& f) {
-  int32_t f19[10], f2[10], f4[10];
-  AG_UNROLL for (int i = 0; i < 10; ++i) {
-    f19[i] = 19 * f.v[i]; f2[i] = 2 * f.v[i]; f4[i] = 4 * f.v[i];
-  }
-  int64_t t[10];
-  AG_UNROLL for (int k = 0; k < 10; ++k) t[k] = 0;
-  AG_UNROLL for (int i = 0; i < 10; ++i) {
-    AG_UNROLL for (int j = i; j < 10; ++j) {
-      const int m = (i != j ? 2 : 1) * (((i & j) & 1) ? 2 : 1);
-      const int32_t a = m == 1 ? f.v[i] : (m == 2 ? f2[i] : f4[i]);
-      const int32_t b = (i + j >= 10) ? f19[j] : f.v[j];
-      t[(i + j) % 10] += (int64_t)a * b;
-    }
-  }
-  fe_carry64(h, t);
-}
-
-AG_DEV void fe_sqn(fe& h, const fe& f, int n) {
-  fe_sq(h, f);
-  AG_NOUNROLL for (int i = 1; i < n; ++i) fe_sq(h, h);
-}
-
-// Canonical limbs of a carried element: value in [0, p), limb i in
-// [0, 2^w_i).  q = floor((h + 19) / 2^255) in {-1, 0, 1} is found by a
-// carry pass; h - q p then normalizes with floor carries.
-AG_DEV void fe_freeze(fe& h, const fe& f) {
-  fe_copy(h, f);
-  fe_carry32(h);
-  int32_t q = (19 * h.v[9] + (1 << 24)) >> 25;
-  AG_UNROLL for (int i = 0; i < 10; ++i) q = (h.v[i] + q) >> (26 - (i & 1));
-  h.v[0] += 19 * q;
-  AG_UNROLL for (int i = 0; i < 9; ++i) {
-    const int w = 26 - (i & 1);
-    const int32_t c = h.v[i] >> w;
-    h.v[i + 1] += c;
-    h.v[i] -= c * (1 << w);
-  }
-  h.v[9] &= (1 << 25) - 1;             // drop 2^255 q
-}
-
-AG_DEV bool fe_is_zero(const fe& f) {
-  fe h;
-  fe_freeze(h, f);
-  int32_t acc = 0;
-  AG_UNROLL for (int i = 0; i < 10; ++i) acc |= h.v[i];
-  return acc == 0;
-}
-
-// z^((p-5)/8) = z^(2^252 - 3): 252 squarings + 11 multiplies.
-AG_DEV void fe_pow22523(fe& out, const fe& z) {
-  fe t0, t1, t2;
-  fe_sq(t0, z);                 // 2
-  fe_sqn(t1, t0, 2);            // 8
-  fe_mul(t1, z, t1);            // 9
-  fe_mul(t0, t0, t1);           // 11
-  fe_sq(t0, t0);                // 22
-  fe_mul(t0, t1, t0);           // 31 = 2^5 - 1
-  fe_sqn(t1, t0, 5);
-  fe_mul(t0, t1, t0);           // 2^10 - 1
-  fe_sqn(t1, t0, 10);
-  fe_mul(t1, t1, t0);           // 2^20 - 1
-  fe_sqn(t2, t1, 20);
-  fe_mul(t1, t2, t1);           // 2^40 - 1
-  fe_sqn(t1, t1, 10);
-  fe_mul(t0, t1, t0);           // 2^50 - 1
-  fe_sqn(t1, t0, 50);
-  fe_mul(t1, t1, t0);           // 2^100 - 1
-  fe_sqn(t2, t1, 100);
-  fe_mul(t1, t2, t1);           // 2^200 - 1
-  fe_sqn(t1, t1, 50);
-  fe_mul(t0, t1, t0);           // 2^250 - 1
-  fe_sqn(t0, t0, 2);            // 2^252 - 4
-  fe_mul(out, t0, z);           // 2^252 - 3
-}
-
-// y from 20 strict 13-bit limbs at stride B -> radix-2^25.5 limbs, and
-// whether y < p.
-AG_DEV bool fe_from_limbs13(fe& h, const int32_t* y, int64_t B, int64_t lane) {
-  uint64_t w[4] = {0, 0, 0, 0};
-  AG_UNROLL for (int k = 0; k < 20; ++k) {
-    const uint64_t l = (uint64_t)(uint32_t)y[k * B + lane] & 0x1FFFu;
-    const int bit = 13 * k, wi = bit >> 6, off = bit & 63;
-    if (wi < 4) {
-      w[wi] |= l << off;
-      if (off > 51 && wi < 3) w[wi + 1] |= l >> (64 - off);
-    }
-  }
-  w[3] &= 0x7FFFFFFFFFFFFFFFull;       // bit 255 is the sign, not y
-  int off = 0;
-  AG_UNROLL for (int i = 0; i < 10; ++i) {
-    const int width = 26 - (i & 1);
-    const int wi = off >> 6, sh = off & 63;
-    uint64_t v = w[wi] >> sh;
-    if (sh + width > 64 && wi < 3) v |= w[wi + 1] << (64 - sh);
-    h.v[i] = (int32_t)(v & ((1ull << width) - 1));
-    off += width;
-  }
-  const bool ge_p = w[3] == 0x7FFFFFFFFFFFFFFFull && w[2] == ~0ull &&
-                    w[1] == ~0ull && w[0] >= 0xFFFFFFFFFFFFFFEDull;
-  return !ge_p;
-}
-
-// Strict y + sign -> x; false if the encoding is not a curve point.
-// Mirrors pallas_verify._decompress check for check.
-AG_DEV bool decompress(fe& x, const fe& y, bool y_ok, int32_t sign,
-                       const int32_t* d, const int32_t* sqrtm1) {
-  fe one, y2, u, v, v2, v3, uv3, uv7, t, vx2, fd;
-  fe_one(one);
-  fe_sq(y2, y);
-  fe_sub(u, y2, one);
-  fe_load(fd, d);
-  fe_mul(v, y2, fd);
-  fe_add(v, v, one);
-  fe_sq(v2, v);
-  fe_mul(v3, v, v2);
-  fe_mul(uv3, u, v3);
-  fe_mul(t, v3, v);
-  fe_mul(uv7, uv3, t);
-  fe_pow22523(t, uv7);
-  fe_mul(x, uv3, t);
-  fe_sq(t, x);
-  fe_mul(vx2, v, t);
-  fe_sub(t, vx2, u);
-  const bool root_direct = fe_is_zero(t);
-  fe_add(t, vx2, u);
-  const bool root_flip = fe_is_zero(t);
-  fe_load(fd, sqrtm1);
-  fe_mul(t, x, fd);
-  if (root_flip) fe_copy(x, t);
-  fe xf;
-  fe_freeze(xf, x);
-  int32_t acc = 0;
-  AG_UNROLL for (int i = 0; i < 10; ++i) acc |= xf.v[i];
-  const bool x_is_zero = acc == 0;
-  if ((xf.v[0] & 1) != sign) {
-    fe_neg(x, xf);
-    fe_carry32(x);
-  } else {
-    fe_copy(x, xf);
-  }
-  return y_ok && (root_direct || root_flip) && !(x_is_zero && sign == 1);
-}
-
-// -- curve: extended twisted Edwards, a = -1 --------------------------------
-
-// dbl-2008-hwcd: 4 squarings + 3 multiplies (4 with T).
-AG_DEV void pt_dbl(ext& r, const ext& p, bool want_t) {
-  fe A, B, C, E, F, G, H, s;
-  fe_sq(A, p.X);
-  fe_sq(B, p.Y);
-  fe_sq(C, p.Z);
-  fe_add(C, C, C);
-  fe_add(s, p.X, p.Y);
-  fe_sq(E, s);
-  fe_sub(E, E, A);
-  fe_sub(E, E, B);
-  fe_sub(G, B, A);
-  fe_sub(F, G, C);
-  fe_add(H, A, B);
-  fe_neg(H, H);
-  fe_mul(r.X, E, F);
-  fe_mul(r.Y, G, H);
-  fe_mul(r.Z, F, G);
-  if (want_t) fe_mul(r.T, E, H);
-}
-
-// r = p + q, q in projective-niels form; `affine` entries have Z = 1 so
-// D = 2 Z1 needs no multiply (the fixed-B table).
-AG_DEV void pt_add_niels(ext& r, const ext& p, const fe& ypx, const fe& ymx,
-                         const fe& t2d, const fe* z2, bool want_t) {
-  fe A, B, C, D, E, F, G, H, s;
-  fe_sub(s, p.Y, p.X);
-  fe_mul(A, s, ymx);
-  fe_add(s, p.Y, p.X);
-  fe_mul(B, s, ypx);
-  fe_mul(C, p.T, t2d);
-  if (z2) fe_mul(D, p.Z, *z2); else fe_add(D, p.Z, p.Z);
-  fe_sub(E, B, A);
-  fe_sub(F, D, C);
-  fe_add(G, D, C);
-  fe_add(H, B, A);
-  fe_mul(r.X, E, F);
-  fe_mul(r.Y, G, H);
-  fe_mul(r.Z, F, G);
-  if (want_t) fe_mul(r.T, E, H);
-}
-
-AG_DEV void to_niels(niels& n, const ext& p, const fe& d2) {
-  fe_add(n.ypx, p.Y, p.X);
-  fe_sub(n.ymx, p.Y, p.X);
-  fe_mul(n.t2d, p.T, d2);
-  fe_add(n.z2, p.Z, p.Z);
-}
-
-// The whole check for one lane; consts as described at the top.
+// The whole check for one lane; consts as described at the top.  The
+// digit handling is written for signed digits; W = 4 digits are never
+// negative, so its negation branches never run.
+template <int W>
 AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
                            const int32_t* yr, const int32_t* sr,
                            const int32_t* sdig, const int32_t* kdig,
@@ -352,6 +72,7 @@ AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
   const bool ok_r = decompress(xr, fy_r, yok_r, sr[lane], d, consts + 20);
 
   // table[e] = e * (-A), projective niels; -A = (-x, y, 1, -x y)
+  constexpr int kEnt = Window<W>::kEnt;
   niels atab[kEnt];
   ext na, acc;
   fe_neg(na.X, xa);
@@ -372,13 +93,13 @@ AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
     to_niels(atab[e], acc, d2);
   }
 
-  // 52 signed 5-bit windows of [S]B - [k]A, most significant first
+  // the windows of [S]B - [k]A, most significant first
   fe_zero(acc.X);
   fe_one(acc.Y);
   fe_one(acc.Z);
   fe_zero(acc.T);
-  AG_NOUNROLL for (int i = 0; i < kWin; ++i) {
-    AG_NOUNROLL for (int j = 0; j < 4; ++j) pt_dbl(acc, acc, false);
+  AG_NOUNROLL for (int i = 0; i < Window<W>::kWin; ++i) {
+    AG_NOUNROLL for (int j = 0; j < W - 1; ++j) pt_dbl(acc, acc, false);
     pt_dbl(acc, acc, true);
 
     const int32_t kd = kdig[i * B + lane];
@@ -426,36 +147,54 @@ AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
 
 constexpr int kThreads = 128;
 
+template <int W>
 __global__ void __launch_bounds__(kThreads)
-ed25519_verify_signed5_kernel(const int32_t* __restrict__ ya,
-                              const int32_t* __restrict__ sa,
-                              const int32_t* __restrict__ yr,
-                              const int32_t* __restrict__ sr,
-                              const int32_t* __restrict__ sdig,
-                              const int32_t* __restrict__ kdig,
-                              const int32_t* __restrict__ consts,
-                              int32_t* __restrict__ out, int64_t B) {
+ed25519_verify_kernel(const int32_t* __restrict__ ya,
+                      const int32_t* __restrict__ sa,
+                      const int32_t* __restrict__ yr,
+                      const int32_t* __restrict__ sr,
+                      const int32_t* __restrict__ sdig,
+                      const int32_t* __restrict__ kdig,
+                      const int32_t* __restrict__ consts,
+                      int32_t* __restrict__ out, int64_t B) {
   __shared__ int32_t sconst[ag::kConsts];
   for (int i = threadIdx.x; i < ag::kConsts; i += blockDim.x) sconst[i] = consts[i];
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  out[lane] = ag::verify_lane(ya, sa, yr, sr, sdig, kdig, sconst, B, lane);
+  out[lane] = ag::verify_lane<W>(ya, sa, yr, sr, sdig, kdig, sconst, B, lane);
 }
 
-// Plain C entry point (loaded with ctypes).  Launches on `stream`, does
-// not synchronize, returns cudaGetLastError() of the launch.
+template <int W>
+static int launch_verify(const int32_t* ya, const int32_t* sa,
+                         const int32_t* yr, const int32_t* sr,
+                         const int32_t* sdig, const int32_t* kdig,
+                         const int32_t* consts, int32_t* out, int64_t B,
+                         void* stream) {
+  if (B <= 0) return 0;
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  ed25519_verify_kernel<W><<<(unsigned)blocks, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+      ya, sa, yr, sr, sdig, kdig, consts, out, B);
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry points (loaded with ctypes).  Each launches on `stream`,
+// does not synchronize, and returns cudaGetLastError() of the launch.
 extern "C" int ag_ed25519_verify_signed5(const int32_t* ya, const int32_t* sa,
                                          const int32_t* yr, const int32_t* sr,
                                          const int32_t* sdig, const int32_t* kdig,
                                          const int32_t* consts, int32_t* out,
                                          int64_t B, void* stream) {
-  if (B <= 0) return 0;
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  ed25519_verify_signed5_kernel<<<(unsigned)blocks, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      ya, sa, yr, sr, sdig, kdig, consts, out, B);
-  return (int)cudaGetLastError();
+  return launch_verify<5>(ya, sa, yr, sr, sdig, kdig, consts, out, B, stream);
+}
+
+extern "C" int ag_ed25519_verify_w4(const int32_t* ya, const int32_t* sa,
+                                    const int32_t* yr, const int32_t* sr,
+                                    const int32_t* sdig, const int32_t* kdig,
+                                    const int32_t* consts, int32_t* out,
+                                    int64_t B, void* stream) {
+  return launch_verify<4>(ya, sa, yr, sr, sdig, kdig, consts, out, B, stream);
 }
 
 #endif  // __CUDACC__

@@ -4,8 +4,10 @@ Each kernel source `csrc/<name>.cu` exposes a plain C entry point and is
 compiled by `nvcc` for Hopper (`sm_90a`) into a shared library that
 `ctypes` loads — no PyTorch headers, so a build takes seconds.  The
 library lands in `csrc/build/<name>-<source hash>.so` at first use (the
-directory is generated, never committed); the `ptxas -v` report
-(registers, spill bytes) is kept beside it in `<name>-<hash>.log`.
+directory is generated, never committed); the hash covers the source and
+every shared header `csrc/*.cuh`, so an edited header rebuilds.  The
+`ptxas -v` report (registers, spill bytes) is kept beside it in
+`<name>-<hash>.log`.
 
 Nothing is built while a module is imported: `load` runs inside the
 first launch.  `build_all` starts one `nvcc` per source at once, so a
@@ -46,10 +48,17 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+def build_key(src: Path) -> str:
+    """Hash of a source and every header beside it (sorted by name)."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def _paths(name: str):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    stem = BUILD / f"{name}-{digest}"
+    stem = BUILD / f"{name}-{build_key(src)}"
     return src, stem.with_suffix(".so"), stem.with_suffix(".log")
 
 

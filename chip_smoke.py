@@ -8,10 +8,16 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
   1. prints the card and its power limit; builds every CUDA kernel from
      `agnes_tpu_torch/csrc/` with nvcc (one process per source, started
      together) and prints the build time and `ptxas` registers/spills;
-  2. holds the Ed25519 verify kernel against its plain PyTorch version
-     on the card, lane for lane: the adversarial grid and the torsioned
-     case (both also against the RFC 8032 oracle `ed25519_ref.verify`)
-     plus 4,096 random honest and forged lanes;
+  2. holds the Ed25519 verify kernel (window 5) against its plain
+     PyTorch version on the card, lane for lane: the adversarial grid and
+     the torsioned case (both also against the RFC 8032 oracle
+     `ed25519_ref.verify`) plus 4,096 random honest and forged lanes;
+  2b. holds the other kernels against their plain versions on the card:
+     the pow kernel on 4,096 random weak lanes plus edge values at
+     e = (p-5)/8 and p-2, the Straus kernel on 4,096 lanes, and the
+     window-4 verify kernel on the grid plus 4,096 random lanes (the grid
+     also against the oracle); `verify_batch(window=4)`, the window-4
+     kernel's public entry, is driven once with its launch count;
   3. one signed consensus height at full width — I = 1,024 instances x
      V = 1,000 validators, an entry phase plus a prevote and a precommit
      class, 2,048,000 signed lanes with validator 7 forged in both
@@ -23,7 +29,22 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      prologue is timed alone, and the kernel and its plain version are
      timed on this run's 2,048,000 lanes and compared on all of them;
   4. four unsigned honest heights at I = 10,000 x V = 1,000
-     (run_heights_fused): every instance must decide four heights.
+     (run_heights_fused): every instance must decide four heights;
+  5. the MSM batch-verify path at full validator width: I = 64 x
+     V = 1,000, both classes honest (128,000 signed lanes), through
+     VoteBatcher(verify_mode="msm").add_arrays -> build_phases_device
+     (host-verified: one MSM pass) -> DeviceDriver.step_seq; every
+     instance must decide 7 in round 0 with 0 rejected, the pow kernel
+     launched twice, the Straus kernel once and the verify kernel never.
+     The verify is then split into its parts by CUDA events.  A forged
+     case follows at I = 4 x V = 1,000 with validator 7 forged in both
+     classes: exactly 2 x I rejected, value 7 decided, and the verify
+     kernel reached through bisection.  Last, each kernel is timed next
+     to its plain version and its bound at the lane counts of this phase
+     (pow also at 2,048,000 lanes; Straus at B = 1 on the path's own
+    [c]B inputs, and at 128,000 random lanes, a shape no caller has yet).
+    A bound counts the least work of the kernel's function on the timed
+    inputs; the kernel's own operation count is printed beside it.
 
 Prints a JSON line of kernel numbers, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
@@ -42,10 +63,13 @@ DEVICE = "cuda"
 SEED = 20261016
 I_SIGNED, V_SIGNED = 1024, 1000
 I_UNSIGNED, V_UNSIGNED, HEIGHTS = 10_000, 1_000, 4
+I_MSM, I_MSM_FORGED = 64, 4
 FORGED = 7
 VALUE = 7
 N_RANDOM = 4096
 KERNEL_REPS = 3
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+P = 2**255 - 19
 
 
 def smi(query: str) -> str:
@@ -95,6 +119,31 @@ def random_lanes(rng, pubkeys, msgs, sigs, n):
     return pubs, ms, ss
 
 
+def compare(got, want) -> tuple:
+    """(lanes that differ, max |difference|) of two int tensors whose
+    last axes are one lane's output."""
+    diff = (got.long() - want.long()).abs()
+    lane_axes = tuple(range(1, diff.ndim)) if diff.ndim > 1 else ()
+    bad = diff.amax(dim=lane_axes) if lane_axes else diff
+    return int((bad > 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+class Bound:
+    """The least time the card could take for a kernel's work: the
+    larger of its int32 operations over the int32 rate (SMs x 64 lanes
+    x max SM clock) and its bytes over the memory rate."""
+
+    def __init__(self, n_sms: int, sm_clock_mhz: float):
+        self.rate = n_sms * 64 * sm_clock_mhz * 1e6
+        self.desc = f"{n_sms} SMs x 64 x {sm_clock_mhz:.0f} MHz"
+
+    def __call__(self, ops: float, nbytes: float):
+        ops_ms = ops / self.rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -107,9 +156,13 @@ def main() -> int:
         return 1
     try:
         from agnes_tpu_torch import cuda_build
+        from agnes_tpu_torch.bridge import ingest
         from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
         from agnes_tpu_torch.crypto import ed25519
+        from agnes_tpu_torch.crypto import ed25519_point as E
         from agnes_tpu_torch.crypto import ed25519_ref as ref
+        from agnes_tpu_torch.crypto import field as F
+        from agnes_tpu_torch.crypto import msm as M
         from agnes_tpu_torch.crypto import verify as V
         from agnes_tpu_torch.harness import fixtures as fx
         from agnes_tpu_torch.harness.device_driver import DeviceDriver
@@ -125,14 +178,19 @@ def main() -> int:
     log(f"[card] {card}")
     props = torch.cuda.get_device_properties(0)
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
+    bound = Bound(props.multi_processor_count, sm_clock_mhz)
+    rows = {}                # kernel name -> its line in the JSON output
 
     # -- phase 1: build ---------------------------------------------------
+    kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL]
     t0 = time.perf_counter()
-    cuda_build.build_all([V.KERNEL])
-    log(f"[build] {V.KERNEL}: {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {cuda_build.build_seconds[V.KERNEL]:.1f} s)")
-    for line in cuda_build.ptxas_report(V.KERNEL):
-        log(f"[build] {line}")
+    cuda_build.build_all(kernels)
+    log(f"[build] {len(kernels)} sources in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in kernels:
+        log(f"[build] {name}: nvcc {cuda_build.build_seconds[name]:.1f} s")
+        for line in cuda_build.ptxas_report(name):
+            log(f"[build] {name}: {line}")
 
     # -- fixture: one signature per validator per class -------------------
     t0 = time.perf_counter()
@@ -144,18 +202,22 @@ def main() -> int:
     msgs = [vote_messages_np(*[np.full(1, x, np.int64)
                                for x in (0, 0, typ, VALUE)])[0].tobytes()
             for typ in classes]
-    log(f"[fixture] {V_SIGNED} keys, {2 * V_SIGNED} signatures: "
+    honest = [s.copy() for s in sigs]
+    for c in range(2):
+        honest[c][FORGED] = np.frombuffer(ref.sign(seeds[FORGED], msgs[c]),
+                                          np.uint8)
+    log(f"[fixture] {V_SIGNED} keys, {2 * V_SIGNED + 2} signatures: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # -- phase 2: kernel vs plain on the card -----------------------------
+    # -- phase 2: verify kernel vs plain on the card ----------------------
     grid = fx.adversarial_grid()
     sk, pk = ref.keypair(bytes([1]) * 32)
     tmsg = b"\x05" * 45
-    honest = ref.sign(sk, tmsg)
+    good = ref.sign(sk, tmsg)
     tors = fx.torsioned_sig(bytes([7]) * 32, tmsg)
     pubs = grid[0] + [pk, tors[0], pk]
     mss = grid[1] + [tmsg, tmsg, tmsg]
-    sgs = grid[2] + [honest, tors[2], bytes([honest[0] ^ 1]) + honest[1:]]
+    sgs = grid[2] + [good, tors[2], bytes([good[0] ^ 1]) + good[1:]]
     want = np.array([ref.verify(p, m, s) for p, m, s in zip(pubs, mss, sgs)])
     if not (want[:4].all() and want[17] and not want[4:17].any()
             and want.tolist()[-3:] == [True, True, False]):
@@ -183,6 +245,62 @@ def main() -> int:
     log(f"[verify] kernel == plain on {n_grid + N_RANDOM} lanes "
         f"({int(full_k[n_grid:].sum())} of {N_RANDOM} random lanes valid); "
         f"grid == ed25519_ref on {n_grid} lanes")
+
+    # -- phase 2b: the other kernels vs plain on the card -----------------
+    # window-4 verify: its public entry once (the launch count of its
+    # path), then kernel vs plain lane for lane
+    V.LAUNCHES_W4 = 0
+    w4_full = ed25519.verify_batch(pub, sig, blocks, window=4).cpu().numpy()
+    w4_launches = V.LAUNCHES_W4
+    if not ((w4_full == full_k).all() and w4_launches == 1):
+        raise AssertionError(f"verify_batch(window=4) differs from window 5 "
+                             f"({int((w4_full != full_k).sum())} lanes) or "
+                             f"launched {w4_launches} times")
+    args4, _ = V.prologue(pub, sig, blocks, window=4)
+    mism_w4, err_w4 = compare(V.verify_w4(*args4),
+                              V.verify_plain(*args4, window=4))
+    if mism_w4:
+        raise AssertionError(f"window-4 kernel != plain on {mism_w4} lanes")
+    log(f"[verify w4] kernel == plain on {n_grid + N_RANDOM} lanes; "
+        f"verify_batch(window=4) == window 5 == ed25519_ref on the grid "
+        f"(launches {w4_launches})")
+
+    # pow: random weak limbs and the edges, at both exponents of the path
+    xs = rng.randint(-8800, 8801, (N_RANDOM, 20)).astype(np.int32)
+    edges = [0, 1, P - 1, P, P + 1, 2**255 - 1, 2**260 - 1]
+    xs[:len(edges)] = [[(v >> (13 * i)) & 0x1FFF for i in range(20)]
+                       for v in edges]
+    xs[len(edges)] = -8800
+    x_pow = torch.from_numpy(xs).to(dev)
+    mism_pow = err_pow = 0
+    for e in ((P - 5) // 8, P - 2):
+        m, er = compare(F.pow_p(x_pow, e), F.freeze(F.pow_plain(x_pow, e)))
+        mism_pow, err_pow = mism_pow + m, max(err_pow, er)
+    if mism_pow:
+        raise AssertionError(f"pow kernel != plain on {mism_pow} lanes")
+    log(f"[pow] kernel == plain (frozen) on {N_RANDOM} lanes at e = (p-5)/8 "
+        f"and p-2, edges included")
+
+    # Straus: random scalars < L, A decompressed from the fixture's keys
+    def scalars(n):
+        vals = [int.from_bytes(rng.bytes(32), "little") % ref.L
+                for _ in range(n)]
+        return torch.tensor([[(v >> (13 * i)) & 0x1FFF for i in range(20)]
+                             for v in vals], dtype=torch.int32, device=dev)
+
+    s_st, k_st = scalars(N_RANDOM), scalars(N_RANDOM)
+    a_st, _ = E.decompress(torch.from_numpy(
+        pubkeys[rng.randint(V_SIGNED, size=N_RANDOM)].astype(np.int32)).to(dev))
+    q_k = E.straus_sub(s_st, k_st, a_st)
+    q_p = E.straus_plain(s_st, k_st, a_st)
+    mism_st = err_st = 0
+    for ck, cp in zip(q_k, q_p):
+        m, er = compare(ck, F.freeze(cp))
+        mism_st, err_st = max(mism_st, m), max(err_st, er)
+    if mism_st:
+        raise AssertionError(f"straus kernel != plain on {mism_st} lanes")
+    log(f"[straus] kernel == plain (frozen coordinates) on {N_RANDOM} lanes")
+    del q_k, q_p, a_st
 
     # -- phase 3: one signed height at full width (the main path) ---------
     I, Vn = I_SIGNED, V_SIGNED
@@ -250,22 +368,25 @@ def main() -> int:
     plain = {}
     plain_ms = cuda_ms(lambda: plain.setdefault("ok", V.verify_plain(*args)),
                        1)
-    mism = int((out_k != plain["ok"]).sum())
-    max_err = int((out_k - plain["ok"]).abs().max())
+    mism, max_err = compare(out_k, plain["ok"])
     del plain
     if mism:
         raise AssertionError(f"kernel != plain on {mism} of {n_lanes} lanes")
-    int32_rate = props.multi_processor_count * 64 * sm_clock_mhz * 1e6
-    ops_ms = V.INT32_OPS_PER_LANE * n_lanes / int32_rate * 1e3
-    bytes_ms = V.BYTES_PER_LANE * n_lanes / 3.35e12 * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    bound_ms, bound_by = bound(V.INT32_OPS_PER_LANE * n_lanes,
+                               V.BYTES_PER_LANE * n_lanes)
     log(f"[verify] B={n_lanes}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms,"
         f" bound {bound_ms:.3f} ms ({V.INT32_OPS_PER_LANE} int32 ops/lane "
-        f"at {props.multi_processor_count} SMs x 64 x {sm_clock_mhz:.0f} "
-        f"MHz; bytes {bytes_ms:.3f} ms), kernel-only verifies/s="
+        f"at {bound.desc}), kernel-only verifies/s="
         f"{n_lanes / ms * 1e3:.0f}; prologue {prologue_ms:.3f} ms, rest of "
         f"the warm step {t_warm * 1e3 - prologue_ms - ms:.3f} ms")
-    del args, lanes, phases, bat, drv, warm
+    rows["ed25519_verify_signed5"] = {
+        "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_verify.cu",
+        "replaces": "agnes_tpu/crypto/pallas_verify.py:409",
+        "launches": launches, "max_abs_err": max_err,
+        "mismatches": mism + mism_small, "ms": ms, "kernel_ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "lanes": n_lanes}
+    del args, out_k, lanes, phases, bat, drv, warm
     torch.cuda.empty_cache()
 
     # -- phase 4: unsigned heights at the north-star state size -----------
@@ -282,24 +403,212 @@ def main() -> int:
     log(f"[unsigned] I={I_UNSIGNED} V={V_UNSIGNED} heights={HEIGHTS} "
         f"wall={wall4:.3f} s votes/s={votes / wall4:.0f} peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[total] {time.perf_counter() - t_all:.1f} s")
+    del d4
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "ed25519_verify_signed5",
-        "route": "cuda",
-        "source": "agnes_tpu_torch/csrc/ed25519_verify.cu",
-        "replaces": "agnes_tpu/crypto/pallas_verify.py:409",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "mismatches": mism + mism_small,
-        "ms": ms,
-        "kernel_ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "lanes": n_lanes,
-    }]}), flush=True)
+    # -- phase 5: the MSM batch-verify path --------------------------------
+    def msm_height(n_inst, class_sigs):
+        """One height through the MSM-mode bridge and step_seq, with the
+        launch counts of this run alone."""
+        cols = [fx.full_mesh_cols(n_inst, Vn, seeds, 0, typ, VALUE,
+                                  sigs=class_sigs[c])
+                for c, typ in enumerate(classes)]
+        torch.cuda.synchronize()
+        V.LAUNCHES = F.POW_LAUNCHES = E.STRAUS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        bat = VoteBatcher(n_inst, Vn, n_slots=4, device=dev,
+                          verify_mode="msm", msm_leaf=64)
+        for c in cols:
+            bat.add_arrays(*c)
+        t_add = time.perf_counter() - t0
+        phases, lanes = bat.build_phases_device(pubkeys)
+        t_build = time.perf_counter() - t0 - t_add
+        drv = DeviceDriver(n_inst, Vn, advance_height=True, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        counts = {"verify": V.LAUNCHES, "pow": F.POW_LAUNCHES,
+                  "straus": E.STRAUS_LAUNCHES}
+        values = {bat.decode_slot(i, int(s))
+                  for i, s in enumerate(drv.stats.decision_value)}
+        ok = (lanes is None and bool(drv.stats.decided.all())
+              and bool((drv.stats.decision_round == 0).all())
+              and values == {VALUE})
+        return (bat, cols, ok, counts,
+                dict(wall=wall, add=t_add, build=t_build, step=t_step))
+
+    bat5, cols5, ok5, n5, t5 = msm_height(I_MSM, honest)
+    n_msm = 2 * I_MSM * Vn
+    if not (ok5 and bat5.rejected_signature == 0 and n5["pow"] == 2
+            and n5["straus"] == 1 and n5["verify"] == 0):
+        raise AssertionError(f"MSM height failed: decided {ok5}, rejected "
+                             f"{bat5.rejected_signature}, launches {n5}")
+    log(f"[msm] I={I_MSM} V={Vn} lanes={n_msm} rejected=0 launches={n5} "
+        f"wall={t5['wall']:.3f} s (add_arrays {t5['add']:.3f} s, "
+        f"build_phases_device incl. the MSM verify {t5['build']:.3f} s, "
+        f"step {t5['step']:.3f} s) verified votes/s={n_msm / t5['wall']:.0f}")
+
+    # the verify's parts on the same lanes, by CUDA events
+    cat = ingest._Batch(*[np.concatenate(x) for x in zip(*cols5)])
+    pub5, sig5, blk5 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in bat5._pack_verify_inputs_np(cat, pubkeys))
+    parts = {}
+    parts["decompress (2 pow launches)"] = cuda_ms(
+        lambda: (E.decompress(pub5), E.decompress(sig5[:, :32])), 1)
+    (a_pt, ok_a), (r_pt, ok_r) = E.decompress(pub5), E.decompress(sig5[:, :32])
+    z = M.make_z(n_msm, device=dev)
+
+    def scalar_part():
+        from agnes_tpu_torch.crypto import scalar as S
+        from agnes_tpu_torch.crypto import sha512
+        k = S.barrett_reduce(S.digest_to_limbs(sha512.sha512_blocks(blk5)))
+        s = S.scalar_from_bytes32(sig5[:, 32:])
+        zk, zs = M.mul_mod_L(z, k), M.mul_mod_L(z, s)
+        return zk, M.sum_mod_L(zs)
+
+    parts["scalars (SHA-512, mod L)"] = cuda_ms(scalar_part, 1)
+    zk, c5 = scalar_part()
+
+    parts["two MSMs (bucket scans, aggregates, doubling chain)"] = cuda_ms(
+        lambda: M.msm_sum([(E.point_neg(a_pt), zk, M.NW_FULL),
+                           (E.point_neg(r_pt), z, M.NW_Z)]), 1)
+    parts["[c]B (1 straus launch)"] = cuda_ms(lambda: M.scalar_mul_base(c5), 1)
+    log("[msm] verify parts: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in parts.items()))
+    del a_pt, r_pt, zk, z
+
+    bat_f, _, ok_f, n_f, t_f = msm_height(I_MSM_FORGED, sigs)
+    if not (ok_f and bat_f.rejected_signature == 2 * I_MSM_FORGED
+            and n_f["verify"] > 0):
+        raise AssertionError(f"forged MSM height failed: decided {ok_f}, "
+                             f"rejected {bat_f.rejected_signature}, "
+                             f"launches {n_f}")
+    log(f"[msm forged] I={I_MSM_FORGED} V={Vn} lanes="
+        f"{2 * I_MSM_FORGED * Vn} rejected={bat_f.rejected_signature} "
+        f"launches={n_f} (MSM passes {n_f['pow'] // 2}) wall="
+        f"{t_f['wall']:.3f} s (build_phases_device {t_f['build']:.3f} s, "
+        f"step {t_f['step']:.3f} s)")
+
+    # each kernel next to its plain version and its bound.  A bound counts
+    # the least work of the kernel's function on this run's inputs (the
+    # shortest known chain for pow, a joint double-and-add over the bits
+    # the scalars have for Straus); the kernel's own count stands beside
+    # it.
+    e58 = (P - 5) // 8
+
+    def time_pow(lanes_n):
+        x = torch.from_numpy(rng.randint(0, 8192, (lanes_n, 20))
+                             .astype(np.int32)).to(dev)
+        F.pow_p(x, e58)                                # warm
+        k_ms = cuda_ms(lambda: F.pow_p(x, e58), KERNEL_REPS)
+        plain = {}
+        p_ms = cuda_ms(lambda: plain.setdefault(
+            "y", F.freeze(F.pow_plain(x, e58))), 1)
+        m, er = compare(F.pow_p(x, e58), plain["y"])
+        b_ms, b_by = bound(F.pow_least_int32_ops(e58) * lanes_n,
+                           160 * lanes_n + 4 * e58.bit_length())
+        return k_ms, p_ms, b_ms, b_by, m, er
+
+    pow_n = time_pow(n_msm)               # each decompress: every lane
+    pow_big = time_pow(2 * I_SIGNED * V_SIGNED)
+    if pow_n[4] or pow_big[4]:
+        raise AssertionError("pow kernel != plain at the timing shapes")
+    for n, r in ((n_msm, pow_n), (2 * I_SIGNED * V_SIGNED, pow_big)):
+        log(f"[pow] B={n} e=(p-5)/8: kernel {r[0]:.3f} ms, plain "
+            f"{r[1]:.3f} ms, bound {r[2]:.3f} ms ({r[3]}; least "
+            f"{F.pow_least_int32_ops(e58)} int32 ops/lane, the kernel's "
+            f"loop {F.pow_int32_ops(e58)}, at {bound.desc}), kernel at "
+            f"{100 * r[2] / r[0]:.3g}% of the bound")
+    rows["fe25519_pow"] = {
+        "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_pow.cu",
+        "replaces": "agnes_tpu/crypto/pallas_ed25519.py:169",
+        "launches": n5["pow"], "max_abs_err": max(err_pow, pow_n[5]),
+        "mismatches": mism_pow + pow_n[4], "ms": pow_n[0],
+        "plain_ms": pow_n[1], "bound_ms": pow_n[2], "bound_by": pow_n[3],
+        "library_ms": None, "lanes": n_msm,
+        "least_int32_ops_per_lane": F.pow_least_int32_ops(e58),
+        "kernel_int32_ops_per_lane": F.pow_int32_ops(e58),
+        f"ms_{2 * I_SIGNED * V_SIGNED}": pow_big[0],
+        f"plain_ms_{2 * I_SIGNED * V_SIGNED}": pow_big[1],
+        f"bound_ms_{2 * I_SIGNED * V_SIGNED}": pow_big[2]}
+
+    def time_straus(s, k, a):
+        lanes_n = s.shape[0]
+        E.straus_sub(s, k, a)                          # warm
+        k_ms = cuda_ms(lambda: E.straus_sub(s, k, a), KERNEL_REPS)
+        plain = {}
+        p_ms = cuda_ms(lambda: plain.setdefault(
+            "q", E.straus_plain(s, k, a)), 1)
+        m = er = 0
+        for ck, cp in zip(E.straus_sub(s, k, a), plain["q"]):
+            mi, ei = compare(ck, F.freeze(cp))
+            m, er = max(m, mi), max(er, ei)
+        least = E.straus_least_int32_ops(s, k)
+        b_ms, b_by = bound(least, E.STRAUS_BYTES_PER_LANE * lanes_n)
+        return k_ms, p_ms, b_ms, b_by, m, er, least / lanes_n
+
+    # [c]B as the MSM path runs it (scalar_mul_base: B = 1, k = 0, A the
+    # identity), then a standalone shape no caller has yet: 128,000 lanes
+    # of random s, k < L and A from the fixture's keys
+    c1 = c5.reshape(1, -1)
+    st_1 = time_straus(c1, torch.zeros_like(c1), E.identity((1,), dev))
+    s_n, k_n = scalars(n_msm), scalars(n_msm)
+    a_n, _ = E.decompress(torch.from_numpy(
+        pubkeys[rng.randint(V_SIGNED, size=n_msm)].astype(np.int32)).to(dev))
+    st_n = time_straus(s_n, k_n, a_n)
+    del s_n, k_n, a_n
+    if st_1[4] or st_n[4]:
+        raise AssertionError("straus kernel != plain at the timing shapes")
+    for n, r in ((1, st_1), (n_msm, st_n)):
+        log(f"[straus] B={n}: kernel {r[0]:.3f} ms, plain {r[1]:.3f} ms, "
+            f"bound {r[2]:.6f} ms ({r[3]}; least {r[6]:.0f} int32 ops/lane "
+            f"on these scalars, the kernel's loop "
+            f"{E.STRAUS_INT32_OPS_PER_LANE}, at {bound.desc}), kernel at "
+            f"{100 * r[2] / r[0]:.3g}% of the bound")
+    rows["ed25519_straus"] = {
+        "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_straus.cu",
+        "replaces": "agnes_tpu/crypto/pallas_ed25519.py:146",
+        "launches": n5["straus"], "max_abs_err": max(err_st, st_1[5], st_n[5]),
+        "mismatches": mism_st + st_1[4] + st_n[4], "ms": st_1[0],
+        "plain_ms": st_1[1], "bound_ms": st_1[2], "bound_by": st_1[3],
+        "library_ms": None, "lanes": 1,
+        "least_int32_ops_per_lane": st_1[6],
+        "kernel_int32_ops_per_lane": E.STRAUS_INT32_OPS_PER_LANE,
+        f"ms_{n_msm}": st_n[0], f"plain_ms_{n_msm}": st_n[1],
+        f"bound_ms_{n_msm}": st_n[2]}
+
+    args4, _ = V.prologue(pub5, sig5, blk5, window=4)
+    V.verify_w4(*args4)                                # warm
+    w4_ms = cuda_ms(lambda: V.verify_w4(*args4), KERNEL_REPS)
+    plain = {}
+    w4_plain_ms = cuda_ms(lambda: plain.setdefault(
+        "ok", V.verify_plain(*args4, window=4)), 1)
+    m, er = compare(V.verify_w4(*args4), plain["ok"])
+    if m or not bool((plain["ok"] > 0).all()):
+        raise AssertionError(f"window-4 kernel != plain on {m} lanes, or an "
+                             f"honest lane failed")
+    w4_bound, w4_by = bound(V.INT32_OPS_PER_LANE_W4 * n_msm,
+                            V.BYTES_PER_LANE_W4 * n_msm)
+    log(f"[verify w4] B={n_msm}: kernel {w4_ms:.3f} ms, plain "
+        f"{w4_plain_ms:.3f} ms, bound {w4_bound:.3f} ms "
+        f"({V.INT32_OPS_PER_LANE_W4} int32 ops/lane at {bound.desc})")
+    rows["ed25519_verify_w4"] = {
+        "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_verify.cu",
+        "replaces": "agnes_tpu/crypto/pallas_verify.py:409 (signed5=False)",
+        "launches": w4_launches, "max_abs_err": max(err_w4, er),
+        "mismatches": mism_w4 + m, "ms": w4_ms, "plain_ms": w4_plain_ms,
+        "bound_ms": w4_bound, "bound_by": w4_by, "library_ms": None,
+        "lanes": n_msm}
+    log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    order = ("ed25519_verify_signed5", "ed25519_verify_w4", "fe25519_pow",
+             "ed25519_straus")
+    print(json.dumps({"kernels": [dict(name=n, **rows[n]) for n in order]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

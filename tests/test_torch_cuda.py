@@ -1,6 +1,7 @@
-"""Card-only tests of the port (marker `cuda`): the CUDA verify kernel
-against its plain PyTorch version and the RFC 8032 oracle, and one small
-signed height through the default-device entry points.  They skip where
+"""Card-only tests of the port (marker `cuda`): each CUDA kernel (verify
+at windows 5 and 4, pow, Straus) against its plain PyTorch version (and
+the verify against the RFC 8032 oracle), one small signed height and one
+small MSM-mode height through the default-device entry points.  They skip where
 no GPU is present; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -74,5 +75,80 @@ def test_signed_height_on_default_device(cuda):
     drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases], lanes)
     assert V.LAUNCHES > n0
     assert drv.all_decided() and drv.rejected_signature_device == 2 * I
+    assert {bat.decode_slot(i, int(s))
+            for i, s in enumerate(drv.stats.decision_value)} == {9}
+
+
+def test_pow_kernel_matches_plain(cuda):
+    from agnes_tpu_torch.crypto import field as F
+
+    rng = np.random.RandomState(4)
+    x = rng.randint(-8800, 8801, (300, 20)).astype(np.int32)
+    p = 2**255 - 19
+    x[0] = [((p + 3) >> (13 * i)) & 0x1FFF for i in range(20)]
+    xt = torch.from_numpy(x).to(cuda)
+    for e in ((p - 5) // 8, p - 2):
+        n0 = F.POW_LAUNCHES
+        got = F.pow_p(xt, e)
+        assert F.POW_LAUNCHES == n0 + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), F.freeze(F.pow_plain(xt, e)).cpu().numpy())
+
+
+def test_straus_kernel_matches_plain(cuda):
+    from agnes_tpu_torch.crypto import ed25519_point as E
+    from agnes_tpu_torch.crypto import field as F
+
+    rng = np.random.RandomState(5)
+    B = 64
+    s, k = (torch.from_numpy(rng.randint(0, 8192, (B, 20)).astype(np.int32))
+            for _ in range(2))
+    s[:, 19] &= 63
+    k[:, 19] &= 63
+    a, _ = E.decompress(torch.from_numpy(
+        fx.validator_pubkeys(fx.deterministic_seeds(B)).astype(np.int32)))
+    args = [t.to(cuda) for t in (s, k)] + [E.Point(*(c.to(cuda) for c in a))]
+    n0 = E.STRAUS_LAUNCHES
+    got = E.straus_sub(*args)
+    assert E.STRAUS_LAUNCHES == n0 + 1
+    for g, w in zip(got, E.straus_plain(*args)):
+        np.testing.assert_array_equal(g.cpu().numpy(),
+                                      F.freeze(w).cpu().numpy())
+
+
+def test_window4_kernel_matches_plain_and_oracle(cuda):
+    pubs, msgs, sigs = _grid_plus_random()
+    pub, sig, blocks = ed25519.pack_verify_inputs(pubs, msgs, sigs,
+                                                  device=cuda)
+    args, ok_s = V.prologue(pub, sig, blocks, window=4)
+    n0 = V.LAUNCHES_W4
+    got = V.verify_w4(*args)
+    assert V.LAUNCHES_W4 == n0 + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), V.verify_plain(*args, window=4).cpu().numpy())
+    want = [ref.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    assert ((got > 0) & ok_s).cpu().tolist() == want
+    assert ed25519.verify_batch(pub, sig, blocks, window=4).cpu().tolist() \
+        == want
+
+
+def test_msm_slice_on_default_device(cuda):
+    from agnes_tpu_torch.crypto import ed25519_point as E
+    from agnes_tpu_torch.crypto import field as F
+
+    I, Vn = 4, 16
+    seeds = fx.deterministic_seeds(Vn)
+    bat = VoteBatcher(I, Vn, n_slots=4, verify_mode="msm", msm_leaf=16)
+    for typ in (0, 1):
+        bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, 0, typ, 9,
+                                          forge_validator=3))
+    counts = (V.LAUNCHES, F.POW_LAUNCHES, E.STRAUS_LAUNCHES)
+    phases, lanes = bat.build_phases_device(fx.validator_pubkeys(seeds))
+    assert lanes is None and bat.rejected_signature == 2 * I
+    assert V.LAUNCHES > counts[0] and F.POW_LAUNCHES > counts[1] \
+        and E.STRAUS_LAUNCHES > counts[2]
+    drv = DeviceDriver(I, Vn, advance_height=True)
+    drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+    assert drv.all_decided()
     assert {bat.decode_slot(i, int(s))
             for i, s in enumerate(drv.stats.decision_value)} == {9}

@@ -1,7 +1,8 @@
-"""The port stands alone: a fresh interpreter imports `agnes_tpu_torch`,
-runs the CPU slice (fused honest heights and one signed height through
-the bridge), and never loads `jax` or any `agnes_tpu` module.  Without a
-GPU its entry points refuse to run unless given device="cpu".
+"""The port stands alone: a fresh interpreter imports `agnes_tpu_torch`
+(the MSM slice's modules included), runs the CPU slice (fused honest
+heights and one signed height through the bridge), and never loads
+`jax` or any `agnes_tpu` module.  Without a GPU its entry points
+refuse to run unless given device="cpu".
 """
 
 import os
@@ -18,6 +19,8 @@ import torch
 import agnes_tpu_torch
 import agnes_tpu_torch.convert
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
+from agnes_tpu_torch.crypto import ed25519_point  # noqa: F401
+from agnes_tpu_torch.crypto import msm as M
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
 
@@ -37,13 +40,17 @@ s = DeviceDriver(I, V, advance_height=True, device="cpu")
 s.step_seq_signed([s.empty_phase()] + [p for p, _ in phases], lanes)
 assert s.all_decided() and s.rejected_signature_device == 2 * I
 
+assert M.make_z(3, seed=1, device="cpu").shape == (3, M.Z_LIMBS)
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
 
 if not torch.cuda.is_available():
     for make in (lambda: DeviceDriver(4, 4),
-                 lambda: VoteBatcher(4, 4, n_slots=4)):
+                 lambda: VoteBatcher(4, 4, n_slots=4),
+                 lambda: VoteBatcher(4, 4, n_slots=4, verify_mode="msm"),
+                 lambda: M.make_z(4)):
         try:
             make()
         except RuntimeError:
