@@ -76,6 +76,9 @@ class _Batch:
     typ: np.ndarray            # [N] int64
     value: np.ndarray          # [N] int64 (_NIL = nil)
     signature: Optional[np.ndarray]   # [N, 64] uint8 or None
+    # [N] bool: verified upstream (the BLS lane's cleared rows); None
+    # when no row is
+    verified: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.instance)
@@ -84,7 +87,8 @@ class _Batch:
         return _Batch(
             self.instance[idx], self.validator[idx], self.height[idx],
             self.round[idx], self.typ[idx], self.value[idx],
-            self.signature[idx] if self.signature is not None else None)
+            self.signature[idx] if self.signature is not None else None,
+            self.verified[idx] if self.verified is not None else None)
 
 
 def _concat(batches: List[_Batch]) -> _Batch:
@@ -94,9 +98,13 @@ def _concat(batches: List[_Batch]) -> _Batch:
     sig = (None if all(s is None for s in sigs) else np.concatenate(
         [s if s is not None else np.zeros((len(b), 64), np.uint8)
          for s, b in zip(sigs, batches)]))
+    vers = [b.verified for b in batches]
+    ver = (None if all(v is None for v in vers) else np.concatenate(
+        [v if v is not None else np.zeros(len(b), bool)
+         for v, b in zip(vers, batches)]))
     return _Batch(*([np.concatenate([getattr(b, f) for b in batches])
                      for f in ("instance", "validator", "height", "round",
-                               "typ", "value")] + [sig]))
+                               "typ", "value")] + [sig, ver]))
 
 
 def vote_messages_np(height: np.ndarray, round_: np.ndarray,
@@ -205,6 +213,20 @@ class VoteBatcher:
             np.asarray(typ, np.int64), np.asarray(value, np.int64),
             np.asarray(signatures, np.uint8)
             if signatures is not None else None))
+
+    def add_class_votes(self, instance, validator, height, round_, typ,
+                        value) -> None:
+        """Enqueue PRE-VERIFIED class votes: the BLS aggregate lane's
+        cleared (or per-share fallback-verified) rows, which carry no
+        Ed25519 signature.  A whole class densifies to one phase carrying
+        its signers' combined weight; `build_phases` skips their
+        verification (and `build_phases_device` takes the host-verified
+        build when they are pending).  Callers must have a cleared
+        pairing or a per-share verify behind every row."""
+        n = len(np.asarray(instance))
+        self.add_arrays(instance, validator, height, round_, typ, value)
+        self._pending[-1] = replace(self._pending[-1],
+                                    verified=np.ones(n, bool))
 
     # -- device sync ---------------------------------------------------------
 
@@ -364,7 +386,11 @@ class VoteBatcher:
             if b.signature is None:
                 b = replace(b, signature=np.zeros((len(b), 64), np.uint8))
             if not _device_verify:
-                good = self._verify(b, pubkeys)
+                good = (b.verified.copy() if b.verified is not None
+                        else np.zeros(len(b), bool))
+                need = np.nonzero(~good)[0]
+                if len(need):
+                    good[need] = self._verify(b.take(need), pubkeys)
                 self.rejected_signature += int(len(b) - good.sum())
                 b = b.take(np.nonzero(good)[0])
                 if len(b) == 0:
@@ -473,6 +499,8 @@ class VoteBatcher:
         self._pending = [b]            # keep the concat for the build
         if len(b) == 0 or (b.round != b.round[0]).any():
             return False
+        if b.verified is not None and b.verified.any():
+            return False               # pre-verified rows carry no lanes
         if ((b.typ < 0) | (b.typ > 1) | (b.instance < 0)
                 | (b.instance >= self.I) | (b.validator < 0)
                 | (b.validator >= self.V)).any():

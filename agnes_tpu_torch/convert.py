@@ -4,7 +4,9 @@
 `DeviceState` / `TallyState` (any sequence of array-likes in field
 order, e.g. `[np.asarray(x) for x in jax_state]`) into the port's
 tensors; `array_from_jax` does the same for `powers`, `proposer_flag`
-and the other loose arrays.  `to_numpy` is the inverse the differential
+and the other loose arrays.  `bls_registry_from_jax` carries a JAX
+`BlsKeyRegistry`'s state into the port's lane registry, so both lanes
+run over the same keys.  `to_numpy` is the inverse the differential
 tests compare with.  No JAX import is needed: numpy is the interchange.
 """
 
@@ -44,3 +46,17 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return type(tree)(*[to_numpy(x) for x in tree])
+
+
+def bls_registry_from_jax(reg):
+    """A JAX `serve.bls_lane.BlsKeyRegistry` (any object with its
+    attributes) -> the port's registry with the same state: compressed
+    keys, decompressed points (plain Python ints), packed limbs, powers,
+    PoP flags, strikes, quarantine flags and epoch, copied as numpy."""
+    from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry
+
+    return BlsKeyRegistry.from_state(
+        reg.pk_bytes, reg.pk_points, np.asarray(reg.pk_limbs),
+        np.asarray(reg.powers), np.asarray(reg.pop_ok),
+        np.asarray(reg.forged_strikes), np.asarray(reg.quarantined),
+        reg.epoch)

@@ -25,12 +25,16 @@ ops, with decompression's power on the CUDA pow kernel
 (`field.pow_p`) and [c]B on the CUDA Straus kernel
 (`ed25519_point.straus_sub`); the bisection fallback settles its
 leaves with `ed25519.verify_batch`, the CUDA verify kernel.
+
+The Pippenger machinery is generic over a `Curve` (point add, identity,
+coordinate shape): `msm_generic` is what the BLS lane's G1 and G2 MSMs
+run (`crypto/bls.py`), with 4-bit windows over 12-bit weight limbs.
 """
 
 from __future__ import annotations
 
 import secrets
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,104 +108,162 @@ def window_digits(s: torch.Tensor, n_windows: int, c: int = WINDOW_C,
     return torch.stack(outs, dim=0)
 
 
-# --- log-depth Pippenger ----------------------------------------------------
+# --- log-depth Pippenger, generic over the curve --------------------------
 
 
-def _lanes(p: E.Point, sl) -> E.Point:
-    """The lanes `sl` (a slice of the lane axis, second to last)."""
-    return E.Point(*(c[..., sl, :] for c in p))
+class Curve(NamedTuple):
+    """What the Pippenger machinery needs of a group: `point_add` of two
+    point NamedTuples, `identity(shape, device)`, and the number of
+    trailing axes of one coordinate (1 for [..., 20] Ed25519 or [..., 33]
+    G1 limbs, 2 for [..., 2, 33] G2 limbs); the lane axis sits just
+    before them."""
+
+    point_add: Callable
+    identity: Callable
+    elem_dims: int = 1
 
 
-def _bucket_sums(points: E.Point, digits: torch.Tensor) -> E.Point:
-    """Bucket sums of windows: points with [N, 20] (or [..., N, 20])
-    coordinates, digits [..., N] -> [..., N_BUCKETS, 20] where lane d
-    is the sum of the points with digit d (identity where none).
+ED25519 = Curve(E.point_add, E.identity, 1)
+
+
+def _at(sl, nd: int = 1):
+    """Index of `sl` on the lane axis of a coordinate with `nd` trailing
+    axes."""
+    return (Ellipsis, sl) + (slice(None),) * nd
+
+
+def _lanes(p, sl, nd: int = 1):
+    """The lanes `sl` (a slice of the lane axis) of a point."""
+    return type(p)(*(c[_at(sl, nd)] for c in p))
+
+
+def _lane_view(t: torch.Tensor, nd: int) -> torch.Tensor:
+    """[..., N] per-lane tensor -> [..., N, 1, ...] against coordinates."""
+    return t.reshape(t.shape + (1,) * nd)
+
+
+def bucket_sums(points, digits: torch.Tensor, curve: Curve,
+                n_buckets: int):
+    """Bucket sums of windows: points with [N, *elem] (or [..., N,
+    *elem]) coordinates, digits [..., N] -> points [..., n_buckets,
+    *elem] where lane d is the sum of the points with digit d (identity
+    where none).
 
     A STABLE sort by digit makes equal digits adjacent; an inclusive
     segmented Hillis-Steele scan (lane i takes lane i - 2^r's running
     sum unless a segment starts between them) leaves each run's total on
     its last lane, which is scattered into its bucket; the other lanes
     land in a dump slot that is cut off."""
+    nd = curve.elem_dims
     lead, n = digits.shape[:-1], digits.shape[-1]
     order = torch.argsort(digits, dim=-1, stable=True)
     ds = torch.gather(digits, -1, order)
-    idx = order[..., None].expand(lead + (n, NLIMBS))
-    pts = E.Point(*(torch.gather(c.expand(lead + (n, NLIMBS)), -2, idx)
-                    for c in points))
+    elem = points[0].shape[points[0].ndim - nd:]
+    full = lead + (n,) + elem
+    idx = _lane_view(order, nd).expand(full)
+    pts = type(points)(*(torch.gather(c.expand(full), -1 - nd, idx)
+                         for c in points))
     new = ds[..., 1:] != ds[..., :-1]
     start = tF.pad(new, (1, 0), value=True)
     d = 1
     while d < n:
-        summed = E.point_add(_lanes(pts, slice(None, -d)),
-                             _lanes(pts, slice(d, None)))
-        keep = start[..., d:, None]
-        pts = E.Point(*(torch.cat([c[..., :d, :],
-                                   torch.where(keep, c[..., d:, :], sm)],
-                                  dim=-2)
-                        for c, sm in zip(pts, summed)))
+        summed = curve.point_add(_lanes(pts, slice(None, -d), nd),
+                                 _lanes(pts, slice(d, None), nd))
+        keep = _lane_view(start[..., d:], nd)
+        pts = type(points)(*(
+            torch.cat([c[_at(slice(None, d), nd)],
+                       torch.where(keep, c[_at(slice(d, None), nd)], sm)],
+                      dim=-1 - nd)
+            for c, sm in zip(pts, summed)))
         start = torch.cat([start[..., :d], start[..., :-d] | start[..., d:]],
                           dim=-1)
         d *= 2
     end = tF.pad(new, (0, 1), value=True)
-    slot = torch.where(end, ds, N_BUCKETS).long()
-    slot = slot[..., None].expand(lead + (n, NLIMBS))
-    idn = E.identity(lead + (N_BUCKETS + 1,), digits.device)
-    return E.Point(*(b.scatter(-2, slot, c)[..., :N_BUCKETS, :]
-                     for b, c in zip(idn, pts)))
+    slot = torch.where(end, ds, n_buckets).long()
+    slot = _lane_view(slot, nd).expand(full)
+    idn = curve.identity(lead + (n_buckets + 1,), digits.device)
+    return type(points)(*(
+        b.scatter(-1 - nd, slot, c)[_at(slice(None, n_buckets), nd)]
+        for b, c in zip(idn, pts)))
 
 
-def _prefix_sums(p: E.Point) -> E.Point:
+def _prefix_sums(p, curve: Curve):
     """Inclusive prefix sums along the lane axis (a power of two long),
     work-efficient: add neighbouring pairs, recurse on the half, then
     fill in the even lanes — 2 log2(n) rounds, < 2n adds."""
-    n = p.x.shape[-2]
+    nd = curve.elem_dims
+    lane = -1 - nd
+    n = p[0].shape[lane]
     if n == 1:
         return p
-    even, odd = _lanes(p, slice(0, None, 2)), _lanes(p, slice(1, None, 2))
-    q = _prefix_sums(E.point_add(even, odd))      # q[j] = Σ_{i <= 2j+1}
-    ev = E.point_add(_lanes(q, slice(None, -1)), _lanes(even, slice(1, None)))
-    return E.Point(*(torch.stack([torch.cat([e[..., :1, :], v], dim=-2), o],
-                                 dim=-2).flatten(-3, -2)
+    even = _lanes(p, slice(0, None, 2), nd)
+    odd = _lanes(p, slice(1, None, 2), nd)
+    q = _prefix_sums(curve.point_add(even, odd), curve)  # Σ_{i <= 2j+1}
+    ev = curve.point_add(_lanes(q, slice(None, -1), nd),
+                         _lanes(even, slice(1, None), nd))
+    return type(p)(*(torch.stack([torch.cat([e[_at(slice(None, 1), nd)], v],
+                                           dim=lane), o],
+                                 dim=lane).flatten(lane - 1, lane)
                      for e, v, o in zip(even, ev, q)))
 
 
-def _bucket_aggregate(buckets: E.Point) -> E.Point:
-    """Σ_{d >= 1} d * bucket_d over the bucket axis ([..., 256, 20] ->
-    [..., 20]) as two log-depth passes: the suffix sums s_d = Σ_{j >= d}
-    bucket_j (prefix sums of the reversed buckets), then Σ_{d >= 1} s_d
-    by a tree."""
-    s = _prefix_sums(E.Point(*(c.flip(-2) for c in buckets)))
-    idn = E.identity(s.x.shape[:-2] + (1,), s.x.device)
-    t = E.Point(*(torch.cat([c[..., :-1, :], i], dim=-2)    # drop s_0
-                  for c, i in zip(s, idn)))
-    n = N_BUCKETS
+def bucket_aggregate(buckets, curve: Curve):
+    """Σ_{d >= 1} d * bucket_d over the bucket axis (a power of two
+    long; [..., nb, *elem] -> [..., *elem]) as two log-depth passes: the
+    suffix sums s_d = Σ_{j >= d} bucket_j (prefix sums of the reversed
+    buckets), then Σ_{d >= 1} s_d by a tree."""
+    nd = curve.elem_dims
+    lane = -1 - nd
+    s = _prefix_sums(type(buckets)(*(c.flip(lane) for c in buckets)), curve)
+    lead = s[0].shape[:lane]
+    idn = curve.identity(lead + (1,), s[0].device)
+    t = type(buckets)(*(torch.cat([c[_at(slice(None, -1), nd)], i],
+                                  dim=lane)                 # drop s_0
+                        for c, i in zip(s, idn)))
+    n = t[0].shape[lane]
     while n > 1:
         n //= 2
-        t = E.point_add(_lanes(t, slice(None, n)), _lanes(t, slice(n, None)))
-    return E.Point(*(c[..., 0, :] for c in t))
+        t = curve.point_add(_lanes(t, slice(None, n), nd),
+                            _lanes(t, slice(n, None), nd))
+    return type(buckets)(*(c[_at(0, nd)] for c in t))
 
 
-def _window_sums(points: E.Point, scalars: torch.Tensor,
-                 n_windows: int) -> E.Point:
-    """[n_windows, 20] points: window w's Σ_d d * bucket_d (least
+def window_sums(points, scalars: torch.Tensor, n_windows: int,
+                curve: Curve = ED25519, c: int = WINDOW_C,
+                bits: int = BITS):
+    """[n_windows, *elem] points: window w's Σ_d d * bucket_d (least
     significant window first).  Windows go through the bucket scan in
     groups of at most LANE_BUDGET lanes, then through one aggregate."""
-    digits = window_digits(scalars, n_windows)           # [n_windows, N]
+    digits = window_digits(scalars, n_windows, c, bits)  # [n_windows, N]
     step = max(1, LANE_BUDGET // max(digits.shape[-1], 1))
-    parts = [_bucket_sums(points, digits[w:w + step])
+    parts = [bucket_sums(points, digits[w:w + step], curve, 1 << c)
              for w in range(0, n_windows, step)]
-    return _bucket_aggregate(E.Point(*(torch.cat(cs) for cs in zip(*parts))))
+    return bucket_aggregate(type(points)(*(torch.cat(cs)
+                                           for cs in zip(*parts))), curve)
 
 
-def _horner(wsums: E.Point) -> E.Point:
-    """Σ_w [2^(8w)] wsums[w]: acc <- [2^8] acc + wsums[w], MSB window
+def horner(wsums, curve: Curve = ED25519, c: int = WINDOW_C):
+    """Σ_w [2^(c w)] wsums[w]: acc <- [2^c] acc + wsums[w], MSB window
     first, from the identity (the twin's window loop)."""
-    acc = E.identity((), wsums.x.device)
-    for w in reversed(range(wsums.x.shape[0])):
-        for _ in range(WINDOW_C):
-            acc = E.point_add(acc, acc)
-        acc = E.point_add(acc, E.Point(*(c[w] for c in wsums)))
+    acc = curve.identity((), wsums[0].device)
+    for w in reversed(range(wsums[0].shape[0])):
+        for _ in range(c):
+            acc = curve.point_add(acc, acc)
+        acc = curve.point_add(acc, type(wsums)(*(x[w] for x in wsums)))
     return acc
+
+
+def msm_generic(points, scalars: torch.Tensor, n_windows: int,
+                curve: Curve, window_c: int = WINDOW_C, bits: int = BITS):
+    """Σ [scalar_i] P_i over any `Curve`: points with [N, *elem]
+    coordinates, scalars [N, n_limbs] of `bits`-bit limbs, n_windows
+    `window_c`-bit windows.  Lanes with scalar 0 contribute nothing
+    (every digit lands in the excluded 0 bucket), which is how padding
+    rows drop out without a mask (`msm_jax.msm_generic`'s contract; the
+    twin scans the buckets sequentially, this scan is log-depth, so the
+    projective coordinates differ while the group element does not)."""
+    return horner(window_sums(points, scalars, n_windows, curve, window_c,
+                              bits), curve, window_c)
 
 
 def msm_sum(terms) -> E.Point:
@@ -210,14 +272,14 @@ def msm_sum(terms) -> E.Point:
     share one doubling chain."""
     total = None
     for points, scalars, nw in sorted(terms, key=lambda t: -t[2]):
-        w = _window_sums(points, scalars, nw)
+        w = window_sums(points, scalars, nw)
         if total is None:
             total = w
             continue
         low = E.point_add(E.Point(*(c[:nw] for c in total)), w)
         total = E.Point(*(torch.cat([lo, c[nw:]])
                           for lo, c in zip(low, total)))
-    return _horner(total)
+    return horner(total)
 
 
 def msm(points: E.Point, scalars: torch.Tensor, n_windows: int) -> E.Point:

@@ -1,0 +1,1 @@
+"""serve layer of the PyTorch port (see the package docstring)."""

@@ -18,6 +18,11 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      window-4 verify kernel on the grid plus 4,096 random lanes (the grid
      also against the oracle); `verify_batch(window=4)`, the window-4
      kernel's public entry, is driven once with its launch count;
+  2c. holds the BLS12-381 field kernels (multiply, reduce) against their
+     plain versions on the card, limb for limb, on the boundary values
+     0, 1, p-1, p, 4p-1 and random rows, the reduce at 1 and 2 carry
+     passes, and times both at a G2 add's stack at rung 1,024 (18,432
+     rows) and at 1,048,576 rows (`bls_kernels`);
   3. one signed consensus height at full width — I = 1,024 instances x
      V = 1,000 validators, an entry phase plus a prevote and a precommit
      class, 2,048,000 signed lanes with validator 7 forged in both
@@ -37,14 +42,20 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      instance must decide 7 in round 0 with 0 rejected, the pow kernel
      launched twice, the Straus kernel once and the verify kernel never.
      The verify is then split into its parts by CUDA events.  A forged
-     case follows at I = 4 x V = 1,000 with validator 7 forged in both
+     case follows at I = 2 x V = 1,000 with validator 7 forged in both
      classes: exactly 2 x I rejected, value 7 decided, and the verify
      kernel reached through bisection.  Last, each kernel is timed next
      to its plain version and its bound at the lane counts of this phase
      (pow also at 2,048,000 lanes; Straus at B = 1 on the path's own
     [c]B inputs, and at 128,000 random lanes, a shape no caller has yet).
     A bound counts the least work of the kernel's function on the timed
-    inputs; the kernel's own operation count is printed beside it.
+    inputs; the kernel's own operation count is printed beside it;
+  6. the BLS aggregate lane at full validator width: I = 4 x V = 1,000
+     with 24-bit stake, 8 classes and 8,000 shares through
+     BlsLane.table.fold -> poll -> clear_classes (the MSMs and two
+     device pairing dispatches) -> VoteBatcher.add_class_votes ->
+     build_phases -> DeviceDriver.step_seq, then a class with one forged
+     share (`bls_lane_phase`).
 
 Prints a JSON line of kernel numbers, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
@@ -63,7 +74,11 @@ DEVICE = "cuda"
 SEED = 20261016
 I_SIGNED, V_SIGNED = 1024, 1000
 I_UNSIGNED, V_UNSIGNED, HEIGHTS = 10_000, 1_000, 4
-I_MSM, I_MSM_FORGED = 64, 4
+I_MSM, I_MSM_FORGED = 64, 2
+I_BLS, V_BLS = 4, 1000             # BLS lane: instances x validators
+BLS_REAL_ROWS = 3 * 6 * 1024       # a G2 add's fv_mul_pairs stack at rung 1,024
+BLS_BIG_ROWS = 1 << 20
+BLS_PLAIN_CHUNK = 1 << 17          # the plain versions' rows per pass (memory)
 FORGED = 7
 VALUE = 7
 N_RANDOM = 4096
@@ -144,6 +159,316 @@ class Bound:
                 "operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def bls_kernels(rng, bound) -> dict:
+    """Phase 2c: the BLS12-381 field kernels (csrc/bls_fp.cu) against
+    their plain versions on the card — the boundary values of
+    tests/test_pallas_field.py and random rows, 0 mismatching limbs; the
+    reduce at each pass count the lane uses (1: fv_reduce, fv_strict; 2:
+    fv_mul_small by 12) — then each timed by CUDA events at a G2 add's
+    fv_mul_pairs stack at rung 1,024 and at 1,048,576 rows, beside its
+    plain version and its bound.  Returns name -> (mismatches, max |err|,
+    ms, plain ms, bound ms, bound_by, (ms, plain ms, bound ms) at
+    1,048,576 rows)."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.crypto import bls_field as BF
+    from agnes_tpu_torch.crypto.bls_ref import P as PB
+
+    dev = torch.device(DEVICE)
+    edges = [BF.to_limbs(v) for v in (0, 1, PB - 1, PB, 4 * PB - 1)]
+
+    def below(bound_v):
+        return int.from_bytes(rng.bytes(56), "little") % bound_v
+
+    def operands(n):
+        """[n, 33]: the edges, then loose rows a + b (a, b < 2p), the
+        operand envelope of fv_mul_pairs."""
+        out = edges + [BF.to_limbs(below(2 * PB)) + BF.to_limbs(below(2 * PB))
+                       for _ in range(n - len(edges))]
+        return torch.from_numpy(np.stack(out).astype(np.int32)).to(dev)
+
+    def sums3(n):
+        """[n, 33]: the edges, then sums of 3 values < 4p/3 (limbs <= 3 x
+        4095, value < 4p): fv_reduce's columns, one pass."""
+        out = edges + [sum(BF.to_limbs(below(4 * PB // 3)) for _ in range(3))
+                       for _ in range(n - len(edges))]
+        return torch.from_numpy(np.stack(out).astype(np.int32)).to(dev)
+
+    def chunked(fn, *xs):
+        return torch.cat([fn(*(x[i:i + BLS_PLAIN_CHUNK] for x in xs))
+                          for i in range(0, xs[0].shape[0], BLS_PLAIN_CHUNK)])
+
+    xa = operands(N_RANDOM)
+    ya = xa.flip(0).contiguous()
+    mism_m, err_m = compare(BF.mul_rows(xa, ya), BF.mul_plain(xa, ya))
+    mism_r = err_r = 0
+    for cols, passes in ((sums3(N_RANDOM), 1), (xa * 12, 2)):
+        m, e = compare(BF.reduce_rows(cols, passes),
+                       BF.reduce_plain(cols, passes))
+        mism_r, err_r = mism_r + m, max(err_r, e)
+    if mism_m or mism_r:
+        raise AssertionError(f"bls_fp kernels != plain: mul {mism_m} rows, "
+                             f"reduce {mism_r} rows")
+    log(f"[bls_fp] mul kernel == plain on {N_RANDOM} rows; reduce kernel == "
+        f"plain on {N_RANDOM} rows at 1 and at 2 carry passes (the edges "
+        f"0, 1, p-1, p, 4p-1 in each)")
+
+    base = operands(4096)
+    out = {}
+    for name in ("bls_fp_mul", "bls_fp_reduce"):
+        res = []
+        for n in (BLS_REAL_ROWS, BLS_BIG_ROWS):
+            x = base.repeat(-(-n // 4096), 1)[:n].contiguous()
+            y = x.flip(0).contiguous()
+            if name == "bls_fp_mul":
+                def kern():
+                    return BF.mul_rows(x, y)
+
+                def plain():
+                    return chunked(BF.mul_plain, x, y)
+                ops, nbytes = BF.MUL_INT32_OPS, 3 * BF.NLIMBS * 4
+            else:
+                def kern():
+                    return BF.reduce_rows(x, 1)
+
+                def plain():
+                    return chunked(lambda c: BF.reduce_plain(c, 1), x)
+                ops, nbytes = BF.REDUCE_INT32_OPS, 2 * BF.NLIMBS * 4
+            kern()                                        # warm
+            k_ms = cuda_ms(kern, KERNEL_REPS)
+            got = {}
+            p_ms = cuda_ms(lambda: got.setdefault("y", plain()), 1)
+            m, e = compare(kern(), got.pop("y"))
+            if m:
+                raise AssertionError(f"{name} != plain on {m} of {n} rows")
+            b_ms, b_by = bound(ops * n, nbytes * n)
+            res.append((k_ms, p_ms, b_ms, b_by, e))
+            log(f"[{name}] R={n}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}; {ops} int32 ops/element at "
+                f"{bound.desc}), kernel at {100 * b_ms / k_ms:.3g}% of the "
+                f"bound")
+            del x, y
+        (k_ms, p_ms, b_ms, b_by, e), big = res
+        mism, err = (mism_m, err_m) if name == "bls_fp_mul" else (mism_r, err_r)
+        out[name] = (mism, max(err, e, big[4]), k_ms, p_ms, b_ms, b_by,
+                     big[:3])
+    torch.cuda.empty_cache()
+    return out
+
+
+def bls_stake(V: int):
+    """Voting powers across the 24-bit W_BITS width, heavy-tailed (the
+    exponent 24 u^2 for uniform u: most validators small, a few near
+    2^24), from the seed; their total stays under the device tally's
+    int32 quorum bound (3 * total < 2^31)."""
+    import numpy as np
+
+    r = np.random.RandomState(SEED + 6)
+    pw = np.floor(np.exp2(24 * r.random_sample(V) ** 2)).astype(np.int64)
+    pw = np.minimum(pw, (1 << 24) - 1)
+    if not (pw.max() >= 1 << 23 and 3 * int(pw.sum()) < 2**31):
+        raise AssertionError(f"stake draw off its width or bound: max "
+                             f"{pw.max()}, total {pw.sum()}")
+    return pw
+
+
+def bls_lane_phase() -> dict:
+    """Phase 6: the BLS aggregate lane at full validator width.
+
+    I = 4 instances x V = 1,000 validators (sk_v = v + 1; pubkeys and
+    shares by cumulative point adds, the registry from those points with
+    the PoPs marked trusted; all built before the timed window), 24-bit stake (6 MSM windows), a prevote
+    and a precommit class per instance signed by every validator: 8
+    classes, 8,000 shares, through BlsLane.table.fold -> poll ->
+    clear_classes (8 bls_aggregate calls at rung 1,024, two
+    bls_pairing_product calls at class rung 4) -> add_class_votes ->
+    build_phases -> DeviceDriver.step_seq.  Every class must clear on the
+    device, every instance decide 7 in round 0, one class's aggregates
+    equal the oracle's, and both kernels be launched by both calls.  A
+    forged case follows: a class of 4 signers with one forged share —
+    its device pairing fails, the host fallback rejects exactly that
+    share, and the other 3 rows still come back.  Returns the kernel
+    launches of the main run, in total and per call."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import bls as BLS
+    from agnes_tpu_torch.crypto import bls_field as BF
+    from agnes_tpu_torch.crypto import bls_pairing as BP
+    from agnes_tpu_torch.crypto import bls_ref as bref
+    from agnes_tpu_torch.crypto.encoding import vote_signing_bytes
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve.batcher import ShapeLadder
+    from agnes_tpu_torch.serve.bls_lane import (BlsKeyRegistry, BlsLane,
+                                                pack_bls_wire)
+    from agnes_tpu_torch.types import VoteType
+
+    I, Vn = I_BLS, V_BLS
+    dev = torch.device(DEVICE)
+    classes = (int(VoteType.PREVOTE), int(VoteType.PRECOMMIT))
+
+    # -- host fixtures (outside the timed window) --
+    t0 = time.perf_counter()
+    pts, acc = [], None
+    for _ in range(Vn):
+        acc = bref.point_add(acc, bref.G1)
+        pts.append(acc)
+    powers = bls_stake(Vn)
+    # the registry from the fixture's own points: BlsKeyRegistry(pubkeys)
+    # would decompress (and subgroup-check) each key, ~0.2 s apiece
+    reg = BlsKeyRegistry.from_state(
+        [bref.g1_compress(p) for p in pts], pts, BLS.pack_g1_rows(pts),
+        powers, np.zeros(Vn, bool), np.zeros(Vn, np.int64),
+        np.zeros(Vn, bool), 0)
+    reg.mark_trusted(np.arange(Vn))
+    msgs = {t: bref.hash_to_g2(vote_signing_bytes(0, 0, t, VALUE))
+            for t in classes}
+    wire = []
+    for t in classes:
+        shares, acc = [], None
+        for _ in range(Vn):
+            acc = bref.point_add(acc, msgs[t])
+            shares.append(np.frombuffer(bref.g2_to_bytes(acc), np.uint8))
+        shares = np.stack(shares)
+        for i in range(I):
+            wire.append(pack_bls_wire([i] * Vn, range(Vn), [0] * Vn,
+                                      [0] * Vn, [t] * Vn, [VALUE] * Vn,
+                                      shares))
+    wire = b"".join(wire)
+    f_msg = bref.hash_to_g2(vote_signing_bytes(0, 1, classes[0], VALUE))
+    f_sh = [bref.point_mul(v + 1, f_msg) for v in range(4)]
+    f_sh[2] = bref.point_mul(77, f_msg)                  # the forged share
+    f_wire = pack_bls_wire([0] * 4, range(4), [0] * 4, [1] * 4,
+                           [classes[0]] * 4, [VALUE] * 4,
+                           np.stack([np.frombuffer(bref.g2_to_bytes(x),
+                                                   np.uint8) for x in f_sh]))
+    log(f"[bls fixture] {Vn} keys, {2 * Vn} shares, stake total "
+        f"{int(powers.sum())} (max {int(powers.max())}, "
+        f"{reg.n_windows} MSM windows): {time.perf_counter() - t0:.1f} s")
+    if reg.n_windows != 6:
+        raise AssertionError(f"stake needs {reg.n_windows} windows, not 6")
+
+    # each device call of the lane timed by CUDA events (read after the
+    # run, so nothing here waits for the card), with its launches
+    calls = []
+
+    def traced(entry, fn):
+        def run(*a, **k):
+            n0 = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            calls.append({"entry": entry, "ev": ev,
+                          "bls_fp_mul": BF.MUL_LAUNCHES - n0[0],
+                          "bls_fp_reduce": BF.REDUCE_LAUNCHES - n0[1],
+                          "out": out if len(calls) == 0 else None})
+            return out
+        return run
+
+    lane = BlsLane(reg, I, target_signers=Vn, max_delay_s=1e9, device=dev)
+    lane.bind(None, ladder=ShapeLadder().with_bls(Vn))
+    orig = (BLS.bls_aggregate, BP.bls_pairing_product)
+    BLS.bls_aggregate = traced("bls_aggregate", orig[0])
+    BP.bls_pairing_product = traced("bls_pairing_product", orig[1])
+    try:
+        torch.cuda.synchronize()
+        BF.MUL_LAUNCHES = BF.REDUCE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        folded = lane.table.fold(wire)
+        closed = lane.poll()
+        t_fold = time.perf_counter() - t0
+        rows = lane.clear_classes(closed)
+        torch.cuda.synchronize()
+        t_clear = time.perf_counter() - t0 - t_fold
+        bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+        bat.set_validators(powers)
+        bat.add_class_votes(*(rows[k] for k in ("instance", "validator",
+                                                "height", "round_", "typ",
+                                                "value")))
+        phases = bat.build_phases()
+        drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+        drv.set_validators(powers)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        launches = {"bls_fp_mul": BF.MUL_LAUNCHES,
+                    "bls_fp_reduce": BF.REDUCE_LAUNCHES}
+        main_calls = list(calls)
+        snap = lane.snapshot()
+        # the forged class: device pairing False -> host fallback
+        rej0 = lane.counters["rejected_share_signature"]
+        f_fold = lane.table.fold(f_wire)
+        f_rows = lane.clear_classes(lane.flush())
+        f_rej = lane.counters["rejected_share_signature"] - rej0
+        f_calls = calls[len(main_calls):]
+        torch.cuda.synchronize()
+    finally:
+        BLS.bls_aggregate, BP.bls_pairing_product = orig
+    for c in calls:
+        c["ms"] = c["ev"][0].elapsed_time(c["ev"][1])
+
+    values = {bat.decode_slot(i, int(s))
+              for i, s in enumerate(drv.stats.decision_value)}
+    s_w = sum(int(powers[v]) * (v + 1) for v in range(Vn)) % bref.R
+    agg_pk, agg_sig = main_calls[0]["out"]
+    aggs = [c for c in main_calls if c["entry"] == "bls_aggregate"]
+    pairs = [c for c in main_calls if c["entry"] == "bls_pairing_product"]
+    per = {n: {e: [c[n] for c in main_calls if c["entry"] == e]
+               for e in ("bls_aggregate", "bls_pairing_product")}
+           for n in launches}
+    checks = {
+        "8,000 shares folded": folded["folded"] == 2 * I * Vn,
+        "8 classes cleared on the device": snap["agg_classes"] == 2 * I
+        and snap["fallback_classes"] == 0 and len(aggs) == 2 * I,
+        "one pairing dispatch per 4 classes": len(pairs) == -(-2 * I // 4)
+        == snap["bls_device_pairing_dispatches"],
+        "rows": rows is not None and len(rows["validator"]) == 2 * I * Vn,
+        "all decided": bool(drv.stats.decided.all()),
+        "round 0": bool((drv.stats.decision_round == 0).all()),
+        f"value {VALUE}": values == {VALUE},
+        "aggregates == oracle": (
+            BLS.g1_from_device(agg_pk) == bref.point_mul(s_w, bref.G1)
+            and BLS.g2_from_device(agg_sig) == bref.point_mul(
+                s_w, msgs[classes[0]])),
+        "kernels launched by both calls": all(
+            min(v) > 0 for n in per for v in per[n].values()),
+        "forged: one share rejected": f_fold["folded"] == 4 and f_rej == 1,
+        "forged: 3 rows dispatch": f_rows is not None and sorted(
+            f_rows["validator"].tolist()) == [0, 1, 3],
+        "forged: device pairing said False": len(
+            [c for c in f_calls if c["entry"] == "bls_pairing_product"]) == 1
+        and lane.counters["fallback_classes"] == 1,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"BLS lane failed: {checks}")
+    n_votes = 2 * I * Vn
+    log(f"[bls] I={I} V={Vn} classes={2 * I} votes={n_votes} wall="
+        f"{wall:.3f} s (fold + poll {t_fold:.3f} s, clear_classes "
+        f"{t_clear:.3f} s, step {t_step:.3f} s) BLS votes verified/s="
+        f"{n_votes / wall:.0f}")
+    log("[bls] bls_aggregate ms per class (CUDA events): " + ", ".join(
+        f"{c['ms']:.1f}" for c in aggs))
+    log("[bls] bls_pairing_product ms per dispatch (4 classes each): "
+        + ", ".join(f"{c['ms']:.1f}" for c in pairs))
+    for n in launches:
+        log(f"[bls] {n} launches: {launches[n]} in the run; per "
+            f"bls_aggregate {per[n]['bls_aggregate']}, per "
+            f"bls_pairing_product {per[n]['bls_pairing_product']}")
+    log(f"[bls forged] 4 signers, 1 forged: rejected {f_rej}, rows "
+        f"{f_rows['validator'].tolist()}, calls " + ", ".join(
+            f"{c['entry']} {c['ms']:.1f} ms" for c in f_calls))
+    return {n: {"total": launches[n],
+                "bls_aggregate": per[n]["bls_aggregate"][0],
+                "bls_pairing_product": per[n]["bls_pairing_product"][0]}
+            for n in launches}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -162,6 +487,7 @@ def main() -> int:
         from agnes_tpu_torch.crypto import ed25519_point as E
         from agnes_tpu_torch.crypto import ed25519_ref as ref
         from agnes_tpu_torch.crypto import field as F
+        from agnes_tpu_torch.crypto import bls_field as BF
         from agnes_tpu_torch.crypto import msm as M
         from agnes_tpu_torch.crypto import verify as V
         from agnes_tpu_torch.harness import fixtures as fx
@@ -182,7 +508,7 @@ def main() -> int:
     rows = {}                # kernel name -> its line in the JSON output
 
     # -- phase 1: build ---------------------------------------------------
-    kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL]
+    kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL, BF.FP_KERNEL]
     t0 = time.perf_counter()
     cuda_build.build_all(kernels)
     log(f"[build] {len(kernels)} sources in parallel: "
@@ -301,6 +627,9 @@ def main() -> int:
         raise AssertionError(f"straus kernel != plain on {mism_st} lanes")
     log(f"[straus] kernel == plain (frozen coordinates) on {N_RANDOM} lanes")
     del q_k, q_p, a_st
+
+    # -- phase 2c: the BLS12-381 field kernels vs plain on the card -------
+    bls_k = bls_kernels(rng, bound)
 
     # -- phase 3: one signed height at full width (the main path) ---------
     I, Vn = I_SIGNED, V_SIGNED
@@ -602,11 +931,28 @@ def main() -> int:
         "mismatches": mism_w4 + m, "ms": w4_ms, "plain_ms": w4_plain_ms,
         "bound_ms": w4_bound, "bound_by": w4_by, "library_ms": None,
         "lanes": n_msm}
+    # -- phase 6: the BLS aggregate lane at full validator width ----------
+    bls_n = bls_lane_phase()
+    for name, (mism, err, ms, plain_ms, bound_ms, bound_by, big) in bls_k.items():
+        rows[name] = {
+            "route": "cuda", "source": "agnes_tpu_torch/csrc/bls_fp.cu",
+            "replaces": ("agnes_tpu/crypto/pallas_field.py:162"
+                         if name == "bls_fp_mul"
+                         else "agnes_tpu/crypto/pallas_field.py:177"),
+            "launches": bls_n[name]["total"], "max_abs_err": err,
+            "mismatches": mism, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "lanes": BLS_REAL_ROWS,
+            "launches_per_bls_aggregate": bls_n[name]["bls_aggregate"],
+            "launches_per_bls_pairing_product":
+                bls_n[name]["bls_pairing_product"],
+            f"ms_{BLS_BIG_ROWS}": big[0], f"plain_ms_{BLS_BIG_ROWS}": big[1],
+            f"bound_ms_{BLS_BIG_ROWS}": big[2]}
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     order = ("ed25519_verify_signed5", "ed25519_verify_w4", "fe25519_pow",
-             "ed25519_straus")
+             "ed25519_straus", "bls_fp_mul", "bls_fp_reduce")
     print(json.dumps({"kernels": [dict(name=n, **rows[n]) for n in order]}),
           flush=True)
     print(card, flush=True)

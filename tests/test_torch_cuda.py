@@ -1,7 +1,9 @@
 """Card-only tests of the port (marker `cuda`): each CUDA kernel (verify
-at windows 5 and 4, pow, Straus) against its plain PyTorch version (and
-the verify against the RFC 8032 oracle), one small signed height and one
-small MSM-mode height through the default-device entry points.  They skip where
+at windows 5 and 4, pow, Straus, the BLS12-381 field multiply and
+reduce) against its plain PyTorch version (and the verify against the
+RFC 8032 oracle), one small signed height, one small MSM-mode height and
+one small BLS aggregate + pairing product through the default-device
+entry points.  They skip where
 no GPU is present; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -152,3 +154,67 @@ def test_msm_slice_on_default_device(cuda):
     assert drv.all_decided()
     assert {bat.decode_slot(i, int(s))
             for i, s in enumerate(drv.stats.decision_value)} == {9}
+
+
+def _bls_rows(rng, n):
+    """[n, 33] strict limbs: the boundary values of
+    tests/test_pallas_field.py, then random values < 4p."""
+    from agnes_tpu_torch.crypto import bls_field as BF
+    from agnes_tpu_torch.crypto.bls_ref import P
+
+    vals = [0, 1, P - 1, P, 4 * P - 1] + [
+        int.from_bytes(rng.bytes(48), "little") % (4 * P)
+        for _ in range(n - 5)]
+    return BF.ints_to_limbs(vals)
+
+
+def test_bls_fp_kernels_match_plain(cuda):
+    from agnes_tpu_torch.crypto import bls_field as BF
+
+    rng = np.random.RandomState(6)
+    xa = torch.from_numpy(_bls_rows(rng, 300)).to(cuda)
+    ya = torch.from_numpy(_bls_rows(rng, 300)[::-1].copy()).to(cuda)
+    loose = xa + ya.flip(0)                      # limbs <= 2 * 4095, < 8p
+    n0 = BF.MUL_LAUNCHES
+    got = BF.mul_rows(loose, ya)
+    assert BF.MUL_LAUNCHES == n0 + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  BF.mul_plain(loose, ya).cpu().numpy())
+    for cols, passes in ((xa * 3, 1), (xa * 12, 2)):
+        n0 = BF.REDUCE_LAUNCHES
+        got = BF.reduce_rows(cols, passes)
+        assert BF.REDUCE_LAUNCHES == n0 + 1
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), BF.reduce_plain(cols, passes).cpu().numpy())
+
+
+def test_bls_aggregate_and_pairing_on_default_device(cuda):
+    from agnes_tpu_torch.crypto import bls as B
+    from agnes_tpu_torch.crypto import bls_field as BF
+    from agnes_tpu_torch.crypto import bls_pairing as BP
+    from agnes_tpu_torch.crypto import bls_ref as bref
+
+    msg = bref.hash_to_g2(b"cuda class")
+    pks, shares, a, s = [], [], None, None
+    for _ in range(4):
+        a, s = bref.point_add(a, bref.G1), bref.point_add(s, msg)
+        pks.append(a)
+        shares.append(s)
+    w = [3, 1, 2, 0]
+    args = [torch.from_numpy(x).to(cuda) for x in
+            (B.pack_g1_rows(pks), B.pack_g2_rows(shares),
+             B.pack_weights(w))]
+    n0 = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+    apk, asig = B.bls_aggregate(*args, n_windows=1)
+    assert BF.MUL_LAUNCHES > n0[0] and BF.REDUCE_LAUNCHES > n0[1]
+    want_pk = bref.point_mul(3 + 2 + 6, bref.G1)
+    assert B.g1_from_device(apk) == want_pk
+    assert B.g2_from_device(asig) == bref.point_mul(11, msg)
+    p = torch.stack([torch.from_numpy(BP.NEG_G1_LIMBS).to(cuda),
+                     torch.stack([apk.x, apk.y, apk.z])])
+    q = torch.stack([torch.stack([asig.x, asig.y, asig.z]),
+                     torch.from_numpy(BP.pack_g2_proj(msg)).to(cuda)])
+    bad = torch.from_numpy(BP.pack_g2_proj(bref.point_mul(12, msg))).to(cuda)
+    q_bad = torch.stack([bad, q[1]])
+    ok = BP.bls_pairing_product(torch.stack([p, p]), torch.stack([q, q_bad]))
+    assert ok.is_cuda and ok.cpu().tolist() == [True, False]

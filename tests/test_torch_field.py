@@ -22,6 +22,7 @@ from agnes_tpu.crypto import scalar_jax as JS
 from agnes_tpu_torch import cuda_build
 from agnes_tpu_torch.crypto import field as F
 from agnes_tpu_torch.crypto import scalar as S
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = 2**255 - 19
 

@@ -1,8 +1,9 @@
 """The port stands alone: a fresh interpreter imports `agnes_tpu_torch`
-(the MSM slice's modules included), runs the CPU slice (fused honest
-heights and one signed height through the bridge), and never loads
-`jax` or any `agnes_tpu` module.  Without a GPU its entry points
-refuse to run unless given device="cpu".
+(the MSM slice's and the BLS lane's modules included), runs the CPU
+slice (fused honest heights, one signed height through the bridge, one
+BLS field product and reduce), and never loads `jax` or any `agnes_tpu`
+module.  Without a GPU its entry points refuse to run unless given
+device="cpu".
 """
 
 import os
@@ -20,9 +21,14 @@ import agnes_tpu_torch
 import agnes_tpu_torch.convert
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
 from agnes_tpu_torch.crypto import ed25519_point  # noqa: F401
+from agnes_tpu_torch.crypto import bls_field as BF
+from agnes_tpu_torch.crypto import bls_pairing  # noqa: F401
+from agnes_tpu_torch.crypto import bls_ref
 from agnes_tpu_torch.crypto import msm as M
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
+from agnes_tpu_torch.serve.batcher import ShapeLadder
+from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry, BlsLane
 
 d = DeviceDriver(4, 4, advance_height=True, device="cpu")
 d.run_heights_fused(2)
@@ -42,6 +48,13 @@ assert s.all_decided() and s.rejected_signature_device == 2 * I
 
 assert M.make_z(3, seed=1, device="cpu").shape == (3, M.Z_LIMBS)
 
+x = torch.from_numpy(BF.ints_to_limbs([3, bls_ref.P - 1]))
+assert [BF.from_limbs(r) % bls_ref.P
+        for r in BF.mul_rows(x, x)] == [9, 1]
+assert BF.from_limbs(BF.reduce_rows(x * 5, 1)[0]) % bls_ref.P == 15
+assert ShapeLadder().with_bls(1000).bls_rung_for(1000) == 1024
+reg = BlsKeyRegistry([list(bls_ref.g1_compress(bls_ref.G1))])
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
@@ -50,7 +63,8 @@ if not torch.cuda.is_available():
     for make in (lambda: DeviceDriver(4, 4),
                  lambda: VoteBatcher(4, 4, n_slots=4),
                  lambda: VoteBatcher(4, 4, n_slots=4, verify_mode="msm"),
-                 lambda: M.make_z(4)):
+                 lambda: M.make_z(4),
+                 lambda: BlsLane(reg, 1)):
         try:
             make()
         except RuntimeError:

@@ -13,6 +13,7 @@ import pytest
 
 from agnes_tpu.bridge.ingest import VoteBatcher as JBatcher
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I, V, S = 6, 5, 2
 

@@ -6,7 +6,7 @@ against the JAX package and the RFC 8032 oracle, on the CPU.
   `ed25519_jax.straus_sub` (frozen coordinates) and vs `ed25519_ref`
   (`compress` bytes of [s]B - [k]A);
 - MSM: `mul_mod_L`, `sum_mod_L`, `window_digits`, `make_z` vs `msm_jax`
-  limb for limb; `msm` and `_bucket_sums` vs `ed25519_ref` point sums,
+  limb for limb; `msm` and `bucket_sums` vs `ed25519_ref` point sums,
   projectively (the log-depth summation order differs from the twin's);
   `verify_batch_msm` on honest, forged and S >= L batches;
   `verify_batch_adaptive` verdict for verdict vs `ed25519_ref.verify`;
@@ -42,6 +42,7 @@ from agnes_tpu_torch.crypto import msm as M
 from agnes_tpu_torch.crypto import verify as V
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P, L = ref.P, ref.L
 
@@ -165,7 +166,8 @@ def test_msm_and_bucket_sums_vs_oracle():
     assert ref.point_equal(_ints(E.Point(*(c[None] for c in got)))[0], want)
 
     digits = M.window_digits(scal, 2)
-    buckets = _ints(M._bucket_sums(_ref_point(pts), digits[1]))
+    buckets = _ints(M.bucket_sums(_ref_point(pts), digits[1],
+                                    M.ED25519, M.N_BUCKETS))
     for d in range(M.N_BUCKETS):
         w = ref.IDENTITY
         for p, s in zip(pts, sc):

@@ -25,6 +25,7 @@ from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
 from agnes_tpu_torch.device import step as ts
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I, V, FORGED, VALUE = 4, 4, 1, 7
 CLASSES = (0, 1)

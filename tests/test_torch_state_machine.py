@@ -22,6 +22,7 @@ from agnes_tpu_torch.convert import array_from_jax, to_numpy
 from agnes_tpu_torch.device.encoding import DeviceEvent, DeviceState
 from agnes_tpu_torch.device.encoding import stack_pytree as port_stack
 from agnes_tpu_torch.device.state_machine import apply_batch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from tests.test_device_sm import _cases
 
 

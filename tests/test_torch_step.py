@@ -19,6 +19,7 @@ from agnes_tpu.types import NIL_ID, VoteType
 from agnes_tpu_torch import convert
 from agnes_tpu_torch.device import step as ts
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I, V = 8, 8
 

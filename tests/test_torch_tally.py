@@ -13,6 +13,7 @@ import pytest
 from agnes_tpu.device import tally as jt
 from agnes_tpu_torch.convert import array_from_jax, tally_from_jax, to_numpy
 from agnes_tpu_torch.device import tally as tt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I, V, W, S = 8, 8, 4, 4
 
