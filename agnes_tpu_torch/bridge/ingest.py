@@ -26,8 +26,18 @@ Port notes: device tensors are built from pinned host memory with
 non-blocking copies (the JAX twin's `jnp.asarray` sites); lanes are not
 rounded up to a power of two (nothing recompiles per shape here), though
 `lane_floor` still pads.  Waiting for later slices: the serve dedup
-columns, the dense (sharded) lane layout, native-phase adoption,
-evidence extraction and the `max_votes` cap.
+columns, the dense (sharded) lane layout, native-phase adoption (and
+its evidence-log site) and the `max_votes` cap.
+
+Evidence.  Every build retains the votes it screened (`_log`), as the
+twin does: host-verified and unsigned builds after the screen, device-
+verify builds before their verdicts exist, with that build's pubkey
+table beside the batch (`_log_pk`).  `signed_evidence` joins a device
+equivocation flag back to the two conflicting signed votes, and
+re-verifies pre-verdict rows against their build's table first (on a
+CUDA batcher through the verify kernel).  `clear_log` drops both lists
+together: the twin's clears only `_log`, so after it a batch's pubkey
+table is another batch's (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -63,6 +73,19 @@ def _pack_pairs(b: "_Batch") -> np.ndarray:
 
 def _unpack_pair(pk: np.int64) -> Tuple[int, int]:
     return int(pk >> _PAIR_SHIFT), int(pk & ((1 << _PAIR_SHIFT) - 1))
+
+
+@dataclass(frozen=True)
+class WireVote:
+    """One signed vote addressed to a consensus instance."""
+
+    instance: int
+    validator: int
+    height: int
+    round: int
+    typ: VoteType
+    value: Optional[int]       # None = nil
+    signature: Optional[bytes] = None
 
 
 @dataclass
@@ -184,6 +207,11 @@ class VoteBatcher:
         # checks + lane batches aligned with the emitted phases
         self._dv_pubkeys: Optional[np.ndarray] = None
         self._emitted_lane_groups: List[_Batch] = []
+        # retained votes (slashing evidence) and, per entry, the pubkey
+        # table of the device-verify build that logged it pre-verdict
+        # (None: logged post-screen, nothing to re-check)
+        self._log: List[_Batch] = []
+        self._log_pk: List[Optional[np.ndarray]] = []
         self.rejected_signature = 0
         self.rejected_malformed = 0
         self.overflow_votes = 0
@@ -250,6 +278,12 @@ class VoteBatcher:
             held, self._held = self._held, []
             self._held_n = 0
             self._pending.extend(held)
+
+    def clear_log(self) -> None:
+        """Drop retained evidence batches (extract evidence for flagged
+        validators via `signed_evidence` first)."""
+        self._log = []
+        self._log_pk = []
 
     # -- host -> device ------------------------------------------------------
 
@@ -395,6 +429,11 @@ class VoteBatcher:
                 b = b.take(np.nonzero(good)[0])
                 if len(b) == 0:
                     return []
+
+        # --- retain votes for slashable evidence: post-screen, or
+        # pre-verdict with the build's pubkey table (device verify)
+        self._log.append(b)
+        self._log_pk.append(self._dv_pubkeys)
 
         # --- past (rotated-out) rounds go to the host tally
         past = (b.round - self.base_round[b.instance]) < 0
@@ -642,6 +681,55 @@ class VoteBatcher:
                 mask=self._to_device(mask),
                 height=hts), int(len(bg))))
         return phases
+
+    # -- evidence ------------------------------------------------------------
+
+    def signed_evidence(self, instance: int, validator: int
+                        ) -> Optional[Tuple[WireVote, WireVote]]:
+        """The two conflicting signed votes behind a device
+        equivocation flag: scans the retained batches in arrival order
+        for two votes by `validator` in `instance` with the same (height,
+        round, class) and different values.  Returns (first, second)
+        WireVotes whose signatures prove the double-sign to any third
+        party, or None.
+
+        Batches logged by device-verify builds are pre-verdict, so their
+        candidate votes are re-verified against that build's pubkey
+        table (one batched `_verify` per batch with candidates; on a
+        CUDA batcher the verify kernel) and unverifiable votes are
+        skipped.  Host-verified and unsigned builds logged post-screen
+        and are trusted."""
+        seen: Dict[Tuple[int, int, int], Tuple[int, Optional[bytes]]] = {}
+        for batch, pk in zip(self._log, self._log_pk):
+            hit = np.nonzero((batch.instance == instance)
+                             & (batch.validator == validator))[0]
+            if len(hit) == 0:
+                continue
+            if pk is not None:
+                if batch.signature is None:
+                    continue
+                good = np.asarray(self._verify(batch.take(hit), pk))
+                hit = hit[good.astype(bool)]
+            for k in hit:
+                key = (int(batch.height[k]), int(batch.round[k]),
+                       int(batch.typ[k]))
+                val = int(batch.value[k])
+                sig = (batch.signature[k].tobytes()
+                       if batch.signature is not None else None)
+                if key not in seen:
+                    seen[key] = (val, sig)
+                elif seen[key][0] != val:
+                    h, r, t = key
+                    fv, fsig = seen[key]
+
+                    def mk(v, s):
+                        return WireVote(
+                            instance=instance, validator=validator,
+                            height=h, round=r, typ=VoteType(t),
+                            value=None if v == _NIL else v, signature=s)
+
+                    return mk(fv, fsig), mk(val, sig)
+        return None
 
     def decode_slot(self, instance: int, slot: int) -> Optional[int]:
         """Device slot -> value id (for reading decisions back)."""

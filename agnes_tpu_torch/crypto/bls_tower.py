@@ -97,7 +97,9 @@ def fv12_out(x: FV12) -> torch.Tensor:
                         for c in x.c], dim=-3)
 
 
-def fv12_one(shape: Tuple[int, ...] = (), device="cpu") -> FV12:
+def fv12_one(shape: Tuple[int, ...], device) -> FV12:
+    """The Fp12 one of batch `shape` on `device` (no default: nothing
+    of the lane may land on the CPU unasked)."""
     zero = torch.zeros(shape + (NLIMBS,), dtype=BF.I32, device=device)
     one = BF._one_like(zero)
 

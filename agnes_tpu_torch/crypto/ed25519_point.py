@@ -150,11 +150,11 @@ STRAUS_LAUNCHES = 0
 
 # Work of one lane of the CUDA kernel (data-independent): one unified
 # add for the B - A entry plus two per step (double, table add), 9
-# multiplies each, 100 32x32->64-bit products a multiply, two int32
-# operations a product.  Bytes: s and k limbs, A's 4 coordinates in,
+# multiplies each, 100 32x32->64-bit products a multiply, one int32
+# operation (an IMAD.WIDE) a product.  Bytes: s and k limbs, A's 4 coordinates in,
 # 4 coordinates out.
 STRAUS_MULS_PER_LANE = 9 * (1 + 2 * N_BITS)
-STRAUS_INT32_OPS_PER_LANE = 2 * 100 * STRAUS_MULS_PER_LANE
+STRAUS_INT32_OPS_PER_LANE = 100 * STRAUS_MULS_PER_LANE
 STRAUS_BYTES_PER_LANE = 4 * (2 * NLIMBS + 4 * NLIMBS + 4 * NLIMBS)
 
 
@@ -177,7 +177,7 @@ def straus_least_int32_ops(s: torch.Tensor, k: torch.Tensor) -> int:
     adds = (used.sum(0) - 1).clamp(min=0)
     muls = (3 * dbl + 8 * adds + (n > 1).long() + (kb & ~sb).any(0).long()
             + 9 * (kb & sb).any(0).long())
-    return int(2 * (100 * muls.sum() + 55 * 4 * dbl.sum()))
+    return int(100 * muls.sum() + 55 * 4 * dbl.sum())
 
 
 def _pt_add_tpu(p: Point, q: Point) -> Point:

@@ -291,10 +291,10 @@ def exponent_bits(e: int) -> List[int]:
 def pow_int32_ops(e: int) -> int:
     """int32 operations a lane of the kernel does for exponent e (its
     square-and-multiply loop): one squaring (55 32x32->64-bit products)
-    per bit and one multiply (100 products) per set bit, two int32
-    operations a product."""
+    per bit and one multiply (100 products) per set bit, one int32
+    operation (an IMAD.WIDE) a product."""
     bits = exponent_bits(e)
-    return 2 * (55 * len(bits) + 100 * sum(bits))
+    return 55 * len(bits) + 100 * sum(bits)
 
 
 # The shortest known addition chains of the exponents the port raises
@@ -309,7 +309,7 @@ def pow_least_int32_ops(e: int) -> int:
     chain of `POW_CHAINS`, counted as `pow_int32_ops` counts.  The bound
     of the pow kernel; the kernel's own loop does `pow_int32_ops(e)`."""
     n_sqr, n_mul = POW_CHAINS[e]
-    return 2 * (55 * n_sqr + 100 * n_mul)
+    return 55 * n_sqr + 100 * n_mul
 
 
 def _mul_tpu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -64,11 +64,14 @@ LAUNCHES_W4 = 0
 
 # Work of one lane of the CUDA kernel, counted from its structure (it is
 # data-independent: fixed windows, fixed chains).  A multiply makes 100
-# 32x32->64-bit products, a squaring 55; each product is counted as two
-# int32 operations.  chip_smoke.py turns this into the kernel's bound.
+# 32x32->64-bit products, a squaring 55; each product is counted as one
+# int32 operation, since it is one IMAD.WIDE (a multiply-add into a
+# 64-bit register pair), against the card's IMAD rate — the convention
+# of the BLS kernels' bounds.  chip_smoke.py turns this into the
+# kernel's bound.
 FIELD_MULS_PER_LANE = 1757
 FIELD_SQRS_PER_LANE = 1574
-INT32_OPS_PER_LANE = 2 * (100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQRS_PER_LANE)
+INT32_OPS_PER_LANE = 100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQRS_PER_LANE
 # bytes a lane moves: y limbs and sign of A and R, two digit planes, ok
 BYTES_PER_LANE = 4 * (2 * NLIMBS + 2 + 2 * N_WIN5 + 1)
 # window 4: one -A table entry fewer (a niels add of 8 multiplies and its
@@ -77,8 +80,8 @@ BYTES_PER_LANE = 4 * (2 * NLIMBS + 2 + 2 * N_WIN5 + 1)
 # windows of 4 + 1 doublings (16, 20), 8 and 6: the same squarings
 FIELD_MULS_PER_LANE_W4 = (FIELD_MULS_PER_LANE - 9 - N_WIN5 * (16 + 8 + 6)
                           + N_WIN4 * (13 + 8 + 6))
-INT32_OPS_PER_LANE_W4 = 2 * (100 * FIELD_MULS_PER_LANE_W4
-                             + 55 * FIELD_SQRS_PER_LANE)
+INT32_OPS_PER_LANE_W4 = (100 * FIELD_MULS_PER_LANE_W4
+                         + 55 * FIELD_SQRS_PER_LANE)
 BYTES_PER_LANE_W4 = 4 * (2 * NLIMBS + 2 + 2 * N_WIN4 + 1)
 
 _D = to_limbs(ref.D)

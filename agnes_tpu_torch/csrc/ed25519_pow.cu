@@ -22,11 +22,11 @@
 // Bound on this card: integer ALU work.  x^((p-5)/8) needs at least the
 // shortest known addition chain, 251 squarings (55 32x32->64-bit
 // products each) and 11 multiplies (100 products): 14,905 products,
-// counted as 29,810 int32 operations a lane (crypto/field.py::
+// counted as 14,905 int32 operations a lane (one IMAD.WIDE a product) (crypto/field.py::
 // pow_least_int32_ops); memory is 160 bytes a lane.  chip_smoke.py
 // derives the bound from that count and the card's SM count and clock.
 // This kernel does more: its square-and-multiply loop over the bits
-// (252 squarings, 251 multiplies: 77,920 operations, pow_int32_ops), 2.6
+// (252 squarings, 251 multiplies: 38,960 operations, pow_int32_ops), 2.6
 // times the chain.  The design is the simple one: the running power stays
 // in registers for the whole loop, with no other state.
 

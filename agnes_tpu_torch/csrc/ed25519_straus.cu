@@ -27,7 +27,8 @@
 // this kernel does (crypto/ed25519_point.py::straus_least_int32_ops
 // counts it on the data).  This kernel does 1 + 2 x 260 unified
 // adds of 9 multiplies (100 32x32->64-bit products each), the doublings
-// and identity adds included, 937,800 operations a lane; 800 bytes a
+// and identity adds included, 468,900 operations a lane (one
+// IMAD.WIDE a product); 800 bytes a
 // lane.  On the MSM path it runs once, for [c]B at B = 1, where one
 // thread's dependent chain of 4,689 multiplies sets the time (latency,
 // not throughput).  The design is the simple one: the table lives in

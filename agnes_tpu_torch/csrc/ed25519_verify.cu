@@ -33,11 +33,12 @@
 //
 // Bound on this card: integer ALU work.  Per lane the W = 5 kernel does
 // 1,757 field multiplies (100 32x32->64-bit products each) and 1,574
-// squarings (55 products each): 262,270 products, counted as 524,540
-// int32 operations (a 64-bit product is two 32-bit words of work);
+// squarings (55 products each): 262,270 products, counted as 262,270
+// int32 operations (each one IMAD.WIDE, a multiply-add into a 64-bit
+// register pair, against the card's IMAD rate);
 // memory is 588 bytes a lane.  The W = 4 kernel has one table entry
 // fewer (-9 multiplies) and 65 windows of 4 doublings instead of 52 of 5:
-// 1,943 multiplies and 1,574 squarings, 561,740 int32 operations, 692
+// 1,943 multiplies and 1,574 squarings, 280,870 int32 operations, 692
 // bytes a lane.  chip_smoke.py derives the bounds from these counts
 // (crypto/verify.py) and the card's SM count and clock.  This first
 // version is the simple one: no shared-memory tiling of the -A table, no

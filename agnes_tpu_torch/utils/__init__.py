@@ -1,0 +1,17 @@
+"""Auxiliary subsystems of the PyTorch port (twins of `agnes_tpu.utils`):
+
+  checkpoint.py   snapshot/resume of the device driver and the vote
+                  batcher (slot maps and the signed-evidence log), in
+                  the twin's .npz format.
+  tracing.py      host spans (chrome-trace JSON, bounded ring, stable
+                  thread ids, tick flow events) + `span`, which names a
+                  region for torch.profiler and as an NVTX range.
+"""
+
+from agnes_tpu_torch.utils.checkpoint import (  # noqa: F401
+    load_batcher,
+    load_driver,
+    save_batcher,
+    save_driver,
+)
+from agnes_tpu_torch.utils.tracing import Tracer, span  # noqa: F401

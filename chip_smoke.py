@@ -23,6 +23,14 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      0, 1, p-1, p, 4p-1 and random rows, the reduce at 1 and 2 carry
      passes, and times both at a G2 add's stack at rung 1,024 (18,432
      rows) and at 1,048,576 rows (`bls_kernels`);
+  2d. runs the layout microbenchmark's own path
+     (`agnes_tpu_torch.scripts.microbench_layout.main`: its six rows at
+     T = 16,384 lanes, N_CHAIN 64 and 128, the fe13_chain kernel timed
+     by CUDA events) with the kernel's launches counted, then holds the
+     kernel against its plain version element for element on each row's
+     inputs and on two cases whose columns wrap int32 (limbs near 2^15,
+     and the whole int32 range), and times the plain version per row
+     beside the kernel and its bound (`chain_phase`);
   3. one signed consensus height at full width — I = 1,024 instances x
      V = 1,000 validators, an entry phase plus a prevote and a precommit
      class, 2,048,000 signed lanes with validator 7 forged in both
@@ -55,7 +63,21 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      BlsLane.table.fold -> poll -> clear_classes (the MSMs and two
      device pairing dispatches) -> VoteBatcher.add_class_votes ->
      build_phases -> DeviceDriver.step_seq, then a class with one forged
-     share (`bls_lane_phase`).
+     share (`bls_lane_phase`);
+  7. checkpoint, resume and signed evidence at full validator width:
+     I = 1,024 x V = 1,000 as phase 3 builds it (validator 7 forged in
+     both classes) with validator 9 also signing value 8 in the prevote
+     class of every instance (a second tick through the same device
+     path).  After the prevote phase `utils.checkpoint.save_driver` +
+     `save_batcher`, both loaded into fresh objects on the card; the
+     original and the restored copies finish the height and must decide
+     alike (value 7, round 0, every instance; equal rejected lanes, state
+     and tally); `signed_evidence(i, 9)` on the restored batcher must
+     return the double-sign, both votes verifying under the RFC 8032
+     oracle, and `signed_evidence(i, 7)` None; the verify kernel must be
+     launched in the phase.  The stages run in `utils.tracing.span`s of
+     a `Tracer` whose chrome trace must parse and hold every stage
+     (`checkpoint_phase`).
 
 Prints a JSON line of kernel numbers, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
@@ -66,8 +88,10 @@ without a CUDA device, 2 outside the repository.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 DEVICE = "cuda"
@@ -82,6 +106,8 @@ BLS_PLAIN_CHUNK = 1 << 17          # the plain versions' rows per pass (memory)
 FORGED = 7
 VALUE = 7
 N_RANDOM = 4096
+EQUIVOCATOR = 9                    # phase 7: signs value 8 as well
+CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 P = 2**255 - 19
@@ -469,6 +495,227 @@ def bls_lane_phase() -> dict:
             for n in launches}
 
 
+def chain_phase(bound) -> dict:
+    """Phase 2d: the layout microbenchmark's path and its kernel
+    (csrc/fe13_chain.cu) against its plain version on the card.  Returns
+    the kernel's line for the JSON output, with every row's numbers."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.scripts import microbench_layout as MB
+
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    MB.LAUNCHES = 0
+    rows = MB.main(["--iters", str(CHAIN_ITERS), "--seed", str(SEED)])
+    launches = MB.LAUNCHES
+    if launches != len(rows) * (CHAIN_ITERS + 1):
+        raise AssertionError(f"microbench launched fe13_chain {launches} "
+                             f"times for {len(rows)} rows")
+
+    def per_lane(t):
+        return t.reshape(MB.NLIMBS, -1).t()
+
+    def check(x, y, n, block):
+        got = MB.chain(x, y, n, block)
+        plain = {}
+        p_ms = cuda_ms(lambda: plain.setdefault(
+            "y", MB.chain_plain(x, y, n)), 1)
+        return compare(per_lane(got), per_lane(plain["y"])) + (p_ms,)
+
+    mism = err = 0
+    for r in rows:
+        label, n = r["label"], r["n_chain"]
+        x, y = (torch.from_numpy(a).to(dev)
+                for a in MB.row_inputs(r["shape"], SEED))
+        m, e, p_ms = check(x, y, n, r["block_lanes"])
+        mism, err = mism + m, max(err, e)
+        b_ms, b_by = bound(MB.least_products(r["lanes"], n),
+                           MB.least_bytes(r["lanes"]))
+        r.update(plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, mismatches=m)
+        log(f"[chain] {label}: kernel {r['ms']:.4f} ms, plain {p_ms:.3f} ms,"
+            f" bound {b_ms:.4f} ms ({b_by}; {MB.PRODUCTS_PER_FE_MUL} IMADs "
+            f"a multiply, the kernel's own count the same, at "
+            f"{bound.desc}), kernel at {100 * b_ms / r['ms']:.3g}% of the "
+            f"bound; {m} of {r['lanes']} lanes differ from plain")
+    rng = np.random.RandomState(SEED + 2)
+    wraps = [MB.wrap_inputs((MB.NLIMBS, MB.T_LANES), SEED + 1),
+             tuple(rng.randint(-2**31, 2**31, (MB.NLIMBS, MB.T_LANES),
+                               np.int64).astype(np.int32) for _ in range(2))]
+    for name, (xw, yw) in zip(("limbs near 2^15", "whole int32 range"),
+                              wraps):
+        x, y = torch.from_numpy(xw).to(dev), torch.from_numpy(yw).to(dev)
+        m, e, _ = check(x, y, MB.N_CHAIN, 512)
+        mism, err = mism + m, max(err, e)
+        log(f"[chain] wrap case ({name}), N_CHAIN {MB.N_CHAIN}: {m} of "
+            f"{MB.T_LANES} lanes differ from plain")
+    if mism:
+        raise AssertionError(f"fe13_chain kernel != plain on {mism} lanes")
+    log(f"[chain] fe13_chain launches on the microbench path: {launches} "
+        f"({len(rows)} rows x {CHAIN_ITERS} timed + 1 warm)")
+    head = rows[0]
+    return {
+        "route": "cuda", "source": "agnes_tpu_torch/csrc/fe13_chain.cu",
+        "replaces": "scripts/microbench_layout.py:65",
+        "launches": launches, "max_abs_err": err, "mismatches": mism,
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "lanes": head["lanes"],
+        "n_chain": head["n_chain"],
+        "products_per_fe_mul": MB.PRODUCTS_PER_FE_MUL,
+        "rows": [{k: r[k] for k in ("label", "block_lanes", "n_chain", "ms",
+                                    "plain_ms", "bound_ms")}
+                 for r in rows]}
+
+
+def checkpoint_phase(seeds, pubkeys, sigs) -> int:
+    """Phase 7: checkpoint, resume and signed evidence at full validator
+    width through the device-verify path (see the module docstring).
+    Returns the verify kernel's launches in the phase."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
+    from agnes_tpu_torch.crypto import ed25519_ref as ref
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.types import VoteType
+    from agnes_tpu_torch.utils import (Tracer, load_batcher, load_driver,
+                                       save_batcher, save_driver, span)
+
+    I, Vn = I_SIGNED, V_SIGNED
+    dev = torch.device(DEVICE)
+    pv, pc = int(VoteType.PREVOTE), int(VoteType.PRECOMMIT)
+    msg8 = vote_messages_np(*(np.full(1, x, np.int64)
+                              for x in (0, 0, pv, 8)))[0].tobytes()
+    sig8 = np.frombuffer(ref.sign(seeds[EQUIVOCATOR], msg8), np.uint8)
+    double = (np.arange(I), np.full(I, EQUIVOCATOR), np.zeros(I, np.int64),
+              np.zeros(I, np.int64), np.full(I, pv, np.int64),
+              np.full(I, 8, np.int64), np.tile(sig8, (I, 1)))
+    tr = Tracer()
+    stages = ("prevote", "double_sign", "save", "load", "finish",
+              "evidence")
+
+    def signed_tick(bat, drv, cols, entry=False):
+        bat.add_arrays(*cols)
+        phases, lanes = bat.build_phases_device(pubkeys,
+                                                phase_offset=int(entry))
+        if lanes is None:
+            raise AssertionError("phase 7 tick left the device-verify path")
+        drv.step_seq_signed(([drv.empty_phase()] if entry else [])
+                            + [p for p, _ in phases], lanes)
+
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+        drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+        with span("prevote", tr):
+            signed_tick(bat, drv, fx.full_mesh_cols(I, Vn, seeds, 0, pv,
+                                                    VALUE, sigs=sigs[0]),
+                        entry=True)
+        with span("double_sign", tr):
+            signed_tick(bat, drv, double)
+            torch.cuda.synchronize()
+        dpath, bpath = (os.path.join(tmp, n) for n in ("d.npz", "b.npz"))
+        with span("save", tr):
+            t1 = time.perf_counter()
+            save_driver(drv, dpath)
+            save_batcher(bat, bpath)
+            t_save = time.perf_counter() - t1
+        sizes = [os.path.getsize(p) for p in (dpath, bpath)]
+        with span("load", tr):
+            t1 = time.perf_counter()
+            drv2 = load_driver(dpath, device=dev)
+            bat2 = load_batcher(bpath, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t1
+        rejects = []
+        with span("finish", tr):
+            cols = fx.full_mesh_cols(I, Vn, seeds, 0, pc, VALUE, sigs=sigs[1])
+            for d, b in ((drv, bat), (drv2, bat2)):
+                r0 = d.rejected_signature_device
+                signed_tick(b, d, cols)
+                rejects.append(d.rejected_signature_device - r0)
+            torch.cuda.synchronize()
+        sample = sorted({0, 1, I // 2, I - 1}
+                        | set(np.random.RandomState(SEED + 7)
+                              .randint(I, size=4).tolist()))
+        evidence = {}
+        with span("evidence", tr):
+            for i in sample:
+                evidence[i] = (bat2.signed_evidence(i, EQUIVOCATOR),
+                               bat.signed_evidence(i, EQUIVOCATOR),
+                               bat2.signed_evidence(i, FORGED))
+        launches = V.LAUNCHES
+        wall = time.perf_counter() - t0
+        tpath = os.path.join(tmp, "trace.json")
+        tr.write(tpath)
+        with open(tpath) as f:
+            spans = [e for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"]
+
+    def oracle_ok(w):
+        msg = vote_messages_np(*(np.full(1, x, np.int64) for x in (
+            w.height, w.round, int(w.typ), w.value)))[0].tobytes()
+        return ref.verify(bytes(pubkeys[w.validator]), msg, w.signature)
+
+    def leaves(d):
+        return [t.cpu().numpy() for t in tuple(d.state) + tuple(d.tally)]
+
+    ev_ok = all(
+        ev is not None and again is not None
+        and [(w.value, w.signature) for w in ev]
+        == [(w.value, w.signature) for w in again]
+        and sorted(w.value for w in ev) == [VALUE, 8]
+        and all(w.instance == i and w.validator == EQUIVOCATOR
+                and int(w.typ) == pv and oracle_ok(w) for w in ev)
+        for i, (ev, again, _) in evidence.items())
+    decided = [{b.decode_slot(i, int(s))
+                for i, s in enumerate(d.stats.decision_value)}
+               for d, b in ((drv, bat), (drv2, bat2))]
+    checks = {
+        "both decided": bool(drv.stats.decided.all())
+        and bool(drv2.stats.decided.all()),
+        f"value {VALUE}": decided == [{VALUE}, {VALUE}],
+        "round 0": bool((drv.stats.decision_round == 0).all())
+        and bool((drv2.stats.decision_round == 0).all()),
+        "same decisions": all(np.array_equal(getattr(drv.stats, f),
+                                             getattr(drv2.stats, f))
+                              for f in ("decided", "decision_value",
+                                        "decision_round")),
+        "same counters": (drv.stats.decisions_total, drv.stats.steps,
+                          drv.stats.votes_ingested)
+        == (drv2.stats.decisions_total, drv2.stats.steps,
+            drv2.stats.votes_ingested),
+        "same state and tally": all(np.array_equal(a, b) for a, b in zip(
+            leaves(drv), leaves(drv2))),
+        "rejected I in the finish, 2I in all": rejects == [I, I]
+        and drv.rejected_signature_device == 2 * I,
+        "double-sign evidence verified": ev_ok,
+        "forger: no evidence": all(f is None
+                                   for _, _, f in evidence.values()),
+        "verify kernel launched": launches > 0,
+        "trace holds every stage": {e["name"] for e in spans}
+        == set(stages),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint phase failed: {checks}")
+    span_ms = {n: tr.total_us(n) / 1e3 for n in stages}
+    log(f"[checkpoint] I={I} V={Vn} validator {EQUIVOCATOR} double-signs "
+        f"(values {VALUE} and 8) in every instance: snapshot after the "
+        f"prevote phase, driver {sizes[0]} bytes, batcher {sizes[1]} bytes "
+        f"({sum(len(b) for b in bat._log)} logged votes), save {t_save:.3f} "
+        f"s, load {t_load:.3f} s; both copies decide {VALUE} in round 0, "
+        f"rejected {rejects} in the finish; evidence on instances {sample}; "
+        f"verify launches {launches}; phase {wall:.3f} s")
+    log("[checkpoint] spans (ms): " + ", ".join(
+        f"{n} {v:.1f}" for n, v in span_ms.items()))
+    return launches
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -492,6 +739,7 @@ def main() -> int:
         from agnes_tpu_torch.crypto import verify as V
         from agnes_tpu_torch.harness import fixtures as fx
         from agnes_tpu_torch.harness.device_driver import DeviceDriver
+        from agnes_tpu_torch.scripts import microbench_layout as MB
         from agnes_tpu_torch.types import VoteType
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -508,7 +756,8 @@ def main() -> int:
     rows = {}                # kernel name -> its line in the JSON output
 
     # -- phase 1: build ---------------------------------------------------
-    kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL, BF.FP_KERNEL]
+    kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL, BF.FP_KERNEL,
+               MB.KERNEL]
     t0 = time.perf_counter()
     cuda_build.build_all(kernels)
     log(f"[build] {len(kernels)} sources in parallel: "
@@ -630,6 +879,9 @@ def main() -> int:
 
     # -- phase 2c: the BLS12-381 field kernels vs plain on the card -------
     bls_k = bls_kernels(rng, bound)
+
+    # -- phase 2d: the layout microbenchmark and its chain kernel ---------
+    rows["fe13_chain"] = chain_phase(bound)
 
     # -- phase 3: one signed height at full width (the main path) ---------
     I, Vn = I_SIGNED, V_SIGNED
@@ -948,11 +1200,14 @@ def main() -> int:
                 bls_n[name]["bls_pairing_product"],
             f"ms_{BLS_BIG_ROWS}": big[0], f"plain_ms_{BLS_BIG_ROWS}": big[1],
             f"bound_ms_{BLS_BIG_ROWS}": big[2]}
+    # -- phase 7: checkpoint, resume and signed evidence ------------------
+    rows["ed25519_verify_signed5"]["launches_checkpoint_phase"] = \
+        checkpoint_phase(seeds, pubkeys, sigs)
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     order = ("ed25519_verify_signed5", "ed25519_verify_w4", "fe25519_pow",
-             "ed25519_straus", "bls_fp_mul", "bls_fp_reduce")
+             "ed25519_straus", "bls_fp_mul", "bls_fp_reduce", "fe13_chain")
     print(json.dumps({"kernels": [dict(name=n, **rows[n]) for n in order]}),
           flush=True)
     print(card, flush=True)

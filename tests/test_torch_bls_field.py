@@ -259,3 +259,10 @@ def test_fp12_inv_and_cyclotomic_square_match_jax():
     np.testing.assert_array_equal(
         T.fv12_out(T.fv12_cyclotomic_square(ta)).numpy(),
         np.asarray(_jit12(JT.fv12_cyclotomic_square, 1)(a)))
+
+
+def test_fv12_one_needs_a_device():
+    with pytest.raises(TypeError):
+        T.fv12_one(())
+    one = T.fv12_out(T.fv12_one((2,), "cpu"))
+    assert one.shape == (2, 6, 2, F.NLIMBS) and int(one.sum()) == 2

@@ -1,9 +1,10 @@
 """Card-only tests of the port (marker `cuda`): each CUDA kernel (verify
 at windows 5 and 4, pow, Straus, the BLS12-381 field multiply and
-reduce) against its plain PyTorch version (and the verify against the
-RFC 8032 oracle), one small signed height, one small MSM-mode height and
-one small BLS aggregate + pairing product through the default-device
-entry points.  They skip where
+reduce, the microbenchmark's field-multiply chain) against its plain
+PyTorch version (and the verify against the RFC 8032 oracle), one small
+signed height, one small MSM-mode height, one small BLS aggregate +
+pairing product and a checkpoint round trip with signed evidence
+through the default-device entry points.  They skip where
 no GPU is present; on the card run
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
@@ -218,3 +219,49 @@ def test_bls_aggregate_and_pairing_on_default_device(cuda):
     q_bad = torch.stack([bad, q[1]])
     ok = BP.bls_pairing_product(torch.stack([p, p]), torch.stack([q, q_bad]))
     assert ok.is_cuda and ok.cpu().tolist() == [True, False]
+
+
+def test_fe13_chain_kernel_matches_plain(cuda):
+    from agnes_tpu_torch.scripts import microbench_layout as MB
+
+    for inputs, shape, block, n_chain in (
+            (MB.row_inputs, (20, 1024), 512, 3),
+            (MB.row_inputs, (20, 8, 128), 1024, 2),
+            (MB.wrap_inputs, (20, 300), 128, 2)):    # ragged, wrapping
+        x, y = (torch.from_numpy(a).to(cuda) for a in inputs(shape, 8))
+        n0 = MB.LAUNCHES
+        got = MB.chain(x, y, n_chain, block)
+        assert MB.LAUNCHES == n0 + 1 and got.shape == x.shape
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), MB.chain_plain(x, y, n_chain).cpu().numpy())
+
+
+def test_checkpoint_round_trip_with_evidence_on_default_device(cuda,
+                                                              tmp_path):
+    from agnes_tpu_torch.utils import checkpoint as C
+
+    I, Vn = 4, 4
+    seeds = fx.deterministic_seeds(Vn)
+    pubkeys = fx.validator_pubkeys(seeds)
+    bat = VoteBatcher(I, Vn, n_slots=4)
+    drv = DeviceDriver(I, Vn, advance_height=True)
+    bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, 0, 0, 9,
+                                      forge_validator=0))
+    phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+    drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases], lanes)
+    C.save_driver(drv, str(tmp_path / "d.npz"))
+    C.save_batcher(bat, str(tmp_path / "b.npz"))
+    drv2 = C.load_driver(str(tmp_path / "d.npz"))
+    bat2 = C.load_batcher(str(tmp_path / "b.npz"))
+    assert drv2.state.round.is_cuda and bat2.device.type == "cuda"
+    for d, b in ((drv, bat), (drv2, bat2)):
+        b.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, 0, 1, 9,
+                                        forge_validator=0))
+        phases, lanes = b.build_phases_device(pubkeys)
+        d.step_seq_signed([p for p, _ in phases], lanes)
+        assert d.all_decided()
+    np.testing.assert_array_equal(drv.stats.decision_value,
+                                  drv2.stats.decision_value)
+    n0 = V.LAUNCHES
+    assert bat2.signed_evidence(0, 0) is None    # forged: re-verify fails
+    assert V.LAUNCHES > n0

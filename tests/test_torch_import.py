@@ -1,8 +1,9 @@
 """The port stands alone: a fresh interpreter imports `agnes_tpu_torch`
-(the MSM slice's and the BLS lane's modules included), runs the CPU
-slice (fused honest heights, one signed height through the bridge, one
-BLS field product and reduce), and never loads `jax` or any `agnes_tpu`
-module.  Without a GPU its entry points refuse to run unless given
+(the MSM slice's, the BLS lane's and the tooling's modules included),
+runs the CPU slice (fused honest heights, one signed height through the
+bridge, one BLS field product and reduce, the microbenchmark's chain, a
+traced checkpoint round trip of the driver and the batcher), and never
+loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
 
@@ -13,8 +14,11 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
+import os
 import sys
+import tempfile
 
+import numpy as np
 import torch
 
 import agnes_tpu_torch
@@ -28,7 +32,10 @@ from agnes_tpu_torch.crypto import msm as M
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
 from agnes_tpu_torch.serve.batcher import ShapeLadder
+from agnes_tpu_torch.scripts import microbench_layout as MB
 from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry, BlsLane
+from agnes_tpu_torch.utils import (Tracer, load_batcher, load_driver,
+                                   save_batcher, save_driver, span)
 
 d = DeviceDriver(4, 4, advance_height=True, device="cpu")
 d.run_heights_fused(2)
@@ -45,6 +52,23 @@ phases, lanes = bat.build_phases_device(fx.validator_pubkeys(seeds),
 s = DeviceDriver(I, V, advance_height=True, device="cpu")
 s.step_seq_signed([s.empty_phase()] + [p for p, _ in phases], lanes)
 assert s.all_decided() and s.rejected_signature_device == 2 * I
+
+tr = Tracer()
+with tempfile.TemporaryDirectory() as tmp:
+    with span("save", tr):
+        save_driver(s, os.path.join(tmp, "d.npz"))
+        save_batcher(bat, os.path.join(tmp, "b.npz"))
+    with span("load", tr):
+        s2 = load_driver(os.path.join(tmp, "d.npz"), device="cpu")
+        bat2 = load_batcher(os.path.join(tmp, "b.npz"), device="cpu")
+    tr.write(os.path.join(tmp, "trace.json"))
+assert (s2.stats.decision_value == s.stats.decision_value).all()
+assert bat2.decode_slot(0, int(s2.stats.decision_value[0])) == 5
+assert len(bat2._log) == 1 and bat2._log_pk[0] is not None
+assert tr.total_us("save") > 0 and tr.total_us("load") > 0
+
+xy = torch.from_numpy(np.arange(40, dtype=np.int32).reshape(20, 2))
+assert MB.chain(xy, xy, 1).shape == (20, 2) and MB.LAUNCHES == 0
 
 assert M.make_z(3, seed=1, device="cpu").shape == (3, M.Z_LIMBS)
 
@@ -64,7 +88,9 @@ if not torch.cuda.is_available():
                  lambda: VoteBatcher(4, 4, n_slots=4),
                  lambda: VoteBatcher(4, 4, n_slots=4, verify_mode="msm"),
                  lambda: M.make_z(4),
-                 lambda: BlsLane(reg, 1)):
+                 lambda: BlsLane(reg, 1),
+                 lambda: load_driver(os.devnull),
+                 lambda: MB.main(["--lanes", "2048"])):
         try:
             make()
         except RuntimeError:

@@ -121,7 +121,7 @@ def test_straus_least_ops_hand_counts():
                      dtype=torch.int32)
     k = torch.tensor([_limbs(0), _limbs(1), _limbs(0)],
                      dtype=torch.int32)
-    assert E.straus_least_int32_ops(s, k) == 2 * (
+    assert E.straus_least_int32_ops(s, k) == (
         100 * (15 + 21) + 55 * (8 + 4))
     assert E.straus_least_int32_ops(s[2:], k[2:]) == 0
     rng = np.random.RandomState(5)
