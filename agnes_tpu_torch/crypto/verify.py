@@ -18,10 +18,11 @@ Boundary (kept from `_verify_jit`, so the kernel can be diffed alone):
   projectively.
 
 Both wrappers launch the CUDA kernel
-(`agnes_tpu_torch/csrc/ed25519_verify.cu`, a template over the window)
-for tensors on the card and run `verify_plain` — a transcription of the
-Pallas kernel body over [20, B] tensors with the same 20 x 13-bit signed
-int32 limbs — for tensors on the CPU.  Nothing else: a failed build or
+(`agnes_tpu_torch/csrc/ed25519_verify.cu`, a template over the window,
+computing in radix-2^32 limbs) for tensors on the card and run
+`verify_plain` — a transcription of the Pallas kernel body over [20, B]
+tensors with the same 20 x 13-bit signed int32 limbs — for tensors on
+the CPU.  Nothing else: a failed build or
 launch raises.  `LAUNCHES` and `LAUNCHES_W4` count kernel launches.
 """
 
@@ -47,7 +48,6 @@ from agnes_tpu_torch.crypto.field import (
     P,
     SUB_K,
     bytes32_to_limbs,
-    limbs25,
     to_limbs,
 )
 
@@ -63,12 +63,15 @@ LAUNCHES = 0
 LAUNCHES_W4 = 0
 
 # Work of one lane of the CUDA kernel, counted from its structure (it is
-# data-independent: fixed windows, fixed chains).  A multiply makes 100
-# 32x32->64-bit products, a squaring 55; each product is counted as one
-# int32 operation, since it is one IMAD.WIDE (a multiply-add into a
-# 64-bit register pair), against the card's IMAD rate — the convention
-# of the BLS kernels' bounds.  chip_smoke.py turns this into the
-# kernel's bound.
+# data-independent: fixed windows, fixed chains).  The bound's yardstick
+# is the radix-2^25.5 field the kernel was first written in: a multiply
+# makes 100 products of 32 x 32 bits, a squaring 55, each counted as one
+# int32 operation against the card's IMAD rate — the convention of the
+# BLS kernels' bounds.  The kernel now computes in radix 2^32
+# (csrc/fe25519_r32.cuh: 64 products a multiply, 36 a squaring, each a
+# lo and a hi half in PTX carry chains); the count is kept, so the
+# kernel's share of its bound reads the same before and after.
+# chip_smoke.py turns this into the kernel's bound.
 FIELD_MULS_PER_LANE = 1757
 FIELD_SQRS_PER_LANE = 1574
 INT32_OPS_PER_LANE = 100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQRS_PER_LANE
@@ -427,14 +430,21 @@ def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
 
 # --- the CUDA kernel --------------------------------------------------------
 
+def limbs32(v: int) -> list:
+    """v in [0, 2^256) -> 8 radix-2^32 limbs, least significant first, as
+    int32 bit patterns (the verify kernel's field layout)."""
+    return [((v >> (32 * i)) & 0xFFFFFFFF) - ((v >> (32 * i + 31)) & 1) * 2**32
+            for i in range(8)]
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_consts() -> Tuple[int, ...]:
-    """The kernel's constant block (540 int32, radix-2^25.5 limbs):
-    d, 2d, sqrt(-1), then the B table's 17 x (y+x, y-x, 2dxy)."""
-    out = limbs25(ref.D) + limbs25(2 * ref.D % P) + limbs25(ref.SQRT_M1)
+    """The kernel's constant block (432 int32, radix-2^32 limbs): d, 2d,
+    sqrt(-1), then the B table's 17 x (y+x, y-x, 2dxy)."""
+    out = limbs32(ref.D) + limbs32(2 * ref.D % P) + limbs32(ref.SQRT_M1)
     for ent in _btable_ints():
         for c in ent:
-            out += limbs25(c)
+            out += limbs32(c)
     return tuple(out)
 
 

@@ -11,8 +11,8 @@
 //        sdig, kdig [nw, B] int32  digits of S and k, most significant
 //                                 window first: W = 5, nw = 52 signed in
 //                                 [-16, 15]; W = 4, nw = 65 in [0, 15]
-//        consts  [540]   int32  d, 2d, sqrt(-1) and the 17-entry affine
-//                                 niels table of e*B (radix-2^25.5 limbs,
+//        consts  [432]   int32  d, 2d, sqrt(-1) and the 17-entry affine
+//                                 niels table of e*B (radix-2^32 limbs,
 //                                 made by crypto/verify.py::kernel_consts;
 //                                 W = 4 reads the first 16 entries)
 //   out: ok      [B]     int32  1 iff A and R decode (canonical y < p,
@@ -22,33 +22,37 @@
 // The S < L check and the prologue (SHA-512, mod-L reduction, digit
 // recoding) stay outside, as in the Pallas version.
 //
-// Design.  The field and curve code is fe25519.cuh (radix-2^25.5 limbs
-// in registers, int64 products).  Per lane: decompress A and R (sqrt
-// addition chain), build the projective-niels table of e*(-A) in local
-// memory, run the windows of joint [S]B - [k]A (W doublings, one -A
-// table add, one fixed-B table add each; the B table sits in shared
-// memory; a negative digit of W = 5 negates its entry, a swap and one
-// negation), then x8 both sides and compare projectively.  The ragged
-// edge is masked here (no padding of B).
+// Bound on this card: integer instruction issue.  Per lane the W = 5
+// kernel does 1,757 field multiplies and 1,574 squarings (262,270 products
+// of 32 x 32 bits as the radix-2^25.5 field counts them, the bound's
+// yardstick in crypto/verify.py) on 588 bytes of input; the W = 4 kernel
+// 1,943 multiplies and 1,574 squarings on 692 bytes.  No matrix product
+// and no streamed tiles, so no tensor cores and no TMA.
 //
-// Bound on this card: integer ALU work.  Per lane the W = 5 kernel does
-// 1,757 field multiplies (100 32x32->64-bit products each) and 1,574
-// squarings (55 products each): 262,270 products, counted as 262,270
-// int32 operations (each one IMAD.WIDE, a multiply-add into a 64-bit
-// register pair, against the card's IMAD rate);
-// memory is 588 bytes a lane.  The W = 4 kernel has one table entry
-// fewer (-9 multiplies) and 65 windows of 4 doublings instead of 52 of 5:
-// 1,943 multiplies and 1,574 squarings, 280,870 int32 operations, 692
-// bytes a lane.  chip_smoke.py derives the bounds from these counts
-// (crypto/verify.py) and the card's SM count and clock.  This first
-// version is the simple one: no shared-memory tiling of the -A table, no
-// multi-lane ILP.
+// Design.  The field and curve code is fe25519_r32.cuh: eight 32-bit
+// limbs in registers, products in PTX carry chains (64 products a
+// multiply, 36 a squaring, where radix 2^25.5 takes 100 wide products and
+// a 64-bit carry pass), adds and subtracts without a carry pass, a value
+// frozen only where it is compared.  Per lane: decompress A and R (sqrt
+// addition chain), build the projective-niels table of e*(-A) in local
+// memory (17 x 128 bytes), run the windows of joint [S]B - [k]A (W
+// doublings, one -A table add, one fixed-B table add each; the B table
+// sits in shared memory; a negative digit of W = 5 negates its entry, a
+// swap and one negation), then x8 both sides and compare projectively.
+// The ragged edge is masked here (no padding of B).
+//
+// The launch: CTAs of 256 threads at the default launch bounds (ptxas
+// then keeps a thread at 128 registers, a few dozen bytes of spills, so
+// two CTAs share an SM).  Timed on the card against 64 and 128 threads,
+// 512, and explicit minimum-block bounds, it ties with the fastest; the
+// -A table in shared memory (2,192 bytes a thread: one CTA of 64 threads
+// an SM) ran 2.2x slower than in local memory.  Numbers in PERF.md.
 
-#include "fe25519.cuh"
+#include "fe25519_r32.cuh"
 
 namespace ag {
 
-constexpr int kConsts = 30 + 17 * 30;
+constexpr int kConsts = 24 + 17 * 24;
 
 template <int W> struct Window;
 template <> struct Window<5> { static constexpr int kWin = 52, kEnt = 17; };
@@ -61,24 +65,25 @@ template <int W>
 AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
                            const int32_t* yr, const int32_t* sr,
                            const int32_t* sdig, const int32_t* kdig,
-                           const int32_t* consts, int64_t B, int64_t lane) {
-  const int32_t* d = consts;
-  const int32_t* btab = consts + 30;
-  fe d2, fy_a, fy_r, xa, xr;
-  fe_load(d2, consts + 10);
+                           const uint32_t* consts, int64_t B, int64_t lane) {
+  using namespace r32;
+  const uint32_t* btab = consts + 24;
+  fe d, d2, sqrtm1, fy_a, fy_r, xa, xr;
+  fe_load(d, consts);
+  fe_load(d2, consts + 8);
+  fe_load(sqrtm1, consts + 16);
 
   const bool yok_a = fe_from_limbs13(fy_a, ya, B, lane);
   const bool yok_r = fe_from_limbs13(fy_r, yr, B, lane);
-  const bool ok_a = decompress(xa, fy_a, yok_a, sa[lane], d, consts + 20);
-  const bool ok_r = decompress(xr, fy_r, yok_r, sr[lane], d, consts + 20);
+  const bool ok_a = decompress(xa, fy_a, yok_a, sa[lane], d, sqrtm1);
+  const bool ok_r = decompress(xr, fy_r, yok_r, sr[lane], d, sqrtm1);
 
   // table[e] = e * (-A), projective niels; -A = (-x, y, 1, -x y)
   constexpr int kEnt = Window<W>::kEnt;
   niels atab[kEnt];
   ext na, acc;
   fe_neg(na.X, xa);
-  fe_carry32(na.X);
-  fe_copy(na.Y, fy_a);
+  na.Y = fy_a;
   fe_one(na.Z);
   fe_mul(na.T, na.X, na.Y);
   fe_one(atab[0].ypx);
@@ -107,24 +112,24 @@ AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
     const niels& na_e = atab[kd < 0 ? -kd : kd];
     fe t2d;
     // -(Y+X, Y-X, 2dT, 2Z) = (Y-X, Y+X, -2dT, 2Z)
-    if (kd < 0) fe_neg(t2d, na_e.t2d); else fe_copy(t2d, na_e.t2d);
+    if (kd < 0) fe_neg(t2d, na_e.t2d); else t2d = na_e.t2d;
     pt_add_niels(acc, acc, kd < 0 ? na_e.ymx : na_e.ypx,
                  kd < 0 ? na_e.ypx : na_e.ymx, t2d, &na_e.z2, true);
 
     const int32_t sd = sdig[i * B + lane];
-    const int32_t* be = btab + 30 * (sd < 0 ? -sd : sd);
+    const uint32_t* be = btab + 24 * (sd < 0 ? -sd : sd);
     fe bypx, bymx;
-    fe_load(bypx, be + (sd < 0 ? 10 : 0));
-    fe_load(bymx, be + (sd < 0 ? 0 : 10));
-    fe_load(t2d, be + 20);
+    fe_load(bypx, be + (sd < 0 ? 8 : 0));
+    fe_load(bymx, be + (sd < 0 ? 0 : 8));
+    fe_load(t2d, be + 16);
     if (sd < 0) fe_neg(t2d, t2d);
     pt_add_niels(acc, acc, bypx, bymx, t2d, nullptr, false);
   }
 
   // cofactored equality: [8]Q == [8]R, cross-multiplied (R has Z = 1)
   ext R;
-  fe_copy(R.X, xr);
-  fe_copy(R.Y, fy_r);
+  R.X = xr;
+  R.Y = fy_r;
   fe_one(R.Z);
   AG_UNROLL for (int j = 0; j < 3; ++j) {
     pt_dbl(acc, acc, false);
@@ -146,7 +151,7 @@ AG_DEV int32_t verify_lane(const int32_t* ya, const int32_t* sa,
 
 #if defined(__CUDACC__)
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
@@ -158,8 +163,9 @@ ed25519_verify_kernel(const int32_t* __restrict__ ya,
                       const int32_t* __restrict__ kdig,
                       const int32_t* __restrict__ consts,
                       int32_t* __restrict__ out, int64_t B) {
-  __shared__ int32_t sconst[ag::kConsts];
-  for (int i = threadIdx.x; i < ag::kConsts; i += blockDim.x) sconst[i] = consts[i];
+  __shared__ __align__(16) uint32_t sconst[ag::kConsts];
+  for (int i = threadIdx.x; i < ag::kConsts; i += blockDim.x)
+    sconst[i] = (uint32_t)consts[i];
   __syncthreads();
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -118,3 +119,33 @@ def ptxas_report(name: str) -> List[str]:
     keys = ("registers", "spill", "stack")
     return [ln.strip() for ln in log.read_text().splitlines()
             if any(k in ln for k in keys)]
+
+
+def ptxas_usage(name: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel function of the built source: `parse_ptxas` of its
+    report ({} before the first build)."""
+    log = _paths(name)[2]
+    return parse_ptxas(log.read_text()) if log.exists() else {}
+
+
+def parse_ptxas(report: str) -> Dict[str, Dict[str, int]]:
+    """Mangled function name -> its `registers`, `stack_bytes` (stack
+    frame) and `spill_bytes` (spill stores plus spill loads), from a
+    `ptxas -v` report."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn:
+            out[fn].update(stack_bytes=int(m.group(1)),
+                           spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out

@@ -7,7 +7,9 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
 
   1. prints the card and its power limit; builds every CUDA kernel from
      `agnes_tpu_torch/csrc/` with nvcc (one process per source, started
-     together) and prints the build time and `ptxas` registers/spills;
+     together) and prints the build time and `ptxas` registers/spills
+     (each kernel's line of the JSON output carries its `registers`,
+     `stack_bytes` and `spill_bytes`);
   2. holds the Ed25519 verify kernel (window 5) against its plain
      PyTorch version on the card, lane for lane: the adversarial grid and
      the torsioned case (both also against the RFC 8032 oracle
@@ -75,9 +77,11 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      and tally); `signed_evidence(i, 9)` on the restored batcher must
      return the double-sign, both votes verifying under the RFC 8032
      oracle, and `signed_evidence(i, 7)` None; the verify kernel must be
-     launched in the phase.  The stages run in `utils.tracing.span`s of
-     a `Tracer` whose chrome trace must parse and hold every stage
-     (`checkpoint_phase`).
+     launched exactly 4 + 5 x (sampled instances) times in the phase (the
+     four ticks, and per instance two re-verified candidates of each
+     `signed_evidence(i, 9)` and one of `(i, 7)`).  The stages run in
+     `utils.tracing.span`s of a `Tracer` whose chrome trace must parse
+     and hold every stage (`checkpoint_phase`).
 
 Prints a JSON line of kernel numbers, the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
@@ -697,7 +701,8 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
         "double-sign evidence verified": ev_ok,
         "forger: no evidence": all(f is None
                                    for _, _, f in evidence.values()),
-        "verify kernel launched": launches > 0,
+        "verify launches: 4 ticks + 5 re-verifies an instance": launches
+        == 4 + 5 * len(sample),
         "trace holds every stage": {e["name"] for e in spans}
         == set(stages),
     }
@@ -1208,6 +1213,18 @@ def main() -> int:
 
     order = ("ed25519_verify_signed5", "ed25519_verify_w4", "fe25519_pow",
              "ed25519_straus", "bls_fp_mul", "bls_fp_reduce", "fe13_chain")
+    for n, (src, fn) in {
+            "ed25519_verify_signed5": (V.KERNEL, "ed25519_verify_kernelILi5E"),
+            "ed25519_verify_w4": (V.KERNEL, "ed25519_verify_kernelILi4E"),
+            "fe25519_pow": (F.POW_KERNEL, "fe_pow_kernel"),
+            "ed25519_straus": (E.STRAUS_KERNEL, "ed25519_straus_kernel"),
+            "bls_fp_mul": (BF.FP_KERNEL, "bls_fp_mul_kernel"),
+            "bls_fp_reduce": (BF.FP_KERNEL, "bls_fp_reduce_kernel"),
+            "fe13_chain": (MB.KERNEL, "fe13_chain_kernel")}.items():
+        usage = [u for f, u in cuda_build.ptxas_usage(src).items() if fn in f]
+        if len(usage) != 1 or len(usage[0]) != 3:
+            raise AssertionError(f"no ptxas report for {fn} in {src}: {usage}")
+        rows[n].update(usage[0])
     print(json.dumps({"kernels": [dict(name=n, **rows[n]) for n in order]}),
           flush=True)
     print(card, flush=True)

@@ -128,23 +128,20 @@ def test_plain_decompress_vs_pallas():
 
 def test_btable_and_kernel_consts():
     """The B table in both limb layouts: the plain version's 13-bit rows
-    equal pallas_verify._btable(17), and the CUDA kernel's radix-2^25.5
+    equal pallas_verify._btable(17), and the CUDA kernel's radix-2^32
     constant block decodes to the same integers."""
     np.testing.assert_array_equal(V._btable13("cpu").numpy(),
                                   np.array(pv._btable(17), np.int32))
     c = V.kernel_consts()
-    assert len(c) == 30 + 17 * 30
+    assert len(c) == 24 + 17 * 24
 
     def dec(limbs):
-        v, off = 0, 0
-        for i, x in enumerate(limbs):
-            v += int(x) << off
-            off += 26 - (i & 1)
-        return v
+        return sum((int(x) & 0xFFFFFFFF) << (32 * i)
+                   for i, x in enumerate(limbs))
 
     ints = [ref.D, 2 * ref.D % P, ref.SQRT_M1]
     ints += [x for ent in V._btable_ints() for x in ent]
-    assert [dec(c[10 * i:10 * i + 10]) for i in range(len(ints))] == ints
+    assert [dec(c[8 * i:8 * i + 8]) for i in range(len(ints))] == ints
 
 
 def _grid_inputs():

@@ -2,7 +2,8 @@
 at windows 5 and 4, pow, Straus, the BLS12-381 field multiply and
 reduce, the microbenchmark's field-multiply chain) against its plain
 PyTorch version (and the verify against the RFC 8032 oracle), one small
-signed height, one small MSM-mode height, one small BLS aggregate +
+signed height, both verify windows at a ragged batch (4,117 lanes), one
+small MSM-mode height, one small BLS aggregate +
 pairing product and a checkpoint round trip with signed evidence
 through the default-device entry points.  They skip where
 no GPU is present; on the card run
@@ -133,6 +134,37 @@ def test_window4_kernel_matches_plain_and_oracle(cuda):
     assert ((got > 0) & ok_s).cpu().tolist() == want
     assert ed25519.verify_batch(pub, sig, blocks, window=4).cpu().tolist() \
         == want
+
+
+def test_verify_kernels_at_a_ragged_batch(cuda):
+    """Both windows at B = 4,117 (4,099 random lanes plus the grid), a
+    count no CTA size divides, so the masked edge of the launch is
+    checked: lane for lane against verify_plain."""
+    pubs, msgs, sigs = fx.adversarial_grid()
+    rng = np.random.RandomState(9)
+    keys = [ref.keypair(rng.bytes(32)) for _ in range(32)]
+    msg = b"\x06" * 45
+    signed = [ref.sign(sk, msg) for sk, _ in keys]
+    for _ in range(4099):
+        v = rng.randint(len(keys))
+        s = bytearray(signed[v])
+        kind = rng.randint(4)
+        if kind == 1:
+            s[rng.randint(32)] ^= 1 << rng.randint(8)
+        elif kind == 2:
+            s[32 + rng.randint(31)] ^= 1 << rng.randint(8)
+        pubs.append(keys[(v + (kind == 3)) % len(keys)][1])
+        msgs.append(msg)
+        sigs.append(bytes(s))
+    assert len(pubs) == 4117 and all(len(pubs) % t for t in (64, 128, 256))
+    pub, sig, blocks = ed25519.pack_verify_inputs(pubs, msgs, sigs,
+                                                  device=cuda)
+    for window, kernel in ((5, V.verify_signed5), (4, V.verify_w4)):
+        args, _ = V.prologue(pub, sig, blocks, window=window)
+        got = kernel(*args).cpu().numpy()
+        want = V.verify_plain(*args, window=window).cpu().numpy()
+        np.testing.assert_array_equal(got, want)
+        assert 0 < want.sum() < len(want)
 
 
 def test_msm_slice_on_default_device(cuda):

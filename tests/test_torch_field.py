@@ -173,6 +173,25 @@ def test_bits_msb_first_vs_scalar_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_parse_ptxas_reads_each_kernel():
+    """Registers, stack frame and spills of each kernel function in a
+    `ptxas -v` report (the lines chip_smoke.py puts in its kernel rows)."""
+    report = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3k_aILi5EEvPi' for 'sm_90a'
+ptxas info    : Function properties for _Z3k_aILi5EEvPi
+    2176 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, 1728 bytes smem, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3k_bPi' for 'sm_90a'
+ptxas info    : Function properties for _Z3k_bPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 372 bytes cmem[0]
+"""
+    assert cuda_build.parse_ptxas(report) == {
+        "_Z3k_aILi5EEvPi": {"registers": 168, "stack_bytes": 2176,
+                            "spill_bytes": 20},
+        "_Z3k_bPi": {"registers": 40, "stack_bytes": 0, "spill_bytes": 0}}
+
+
 def test_build_key_covers_shared_headers(tmp_path):
     """An edited header must rebuild every kernel that includes it: the
     build key hashes the source and all csrc/*.cuh."""
