@@ -23,7 +23,11 @@ a CPU tensor runs the plain PyTorch version beside it, `mul_plain` /
 `reduce_plain`: the twin's rolled `reduce_cols(_mul_cols(...))` and
 `reduce_cols` in torch ops.  Both give the twin's limbs limb for limb.
 There is no backend switch: the tensor's device decides.
-`MUL_LAUNCHES` / `REDUCE_LAUNCHES` count kernel launches.
+`MUL_LAUNCHES` / `REDUCE_LAUNCHES` count kernel launches, and
+`MUL_ROWS` / `REDUCE_ROWS` count them by row count.  The kernels read
+the callers' [..., NLIMBS] rows in place and write contiguous rows; a
+field element takes `group_size(R, MUL_GROUPS)` (or `REDUCE_GROUPS`)
+lanes of a launch of R rows.
 
 Plain-version notes.  PyTorch has no int32 matmul on the card, so the
 twin's banded `x @ _MU_MAT` / `q @ _P_MAT` become skewed outer products
@@ -36,6 +40,7 @@ four limbs — 9 steps instead of 17, the same bits.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -228,9 +233,14 @@ def mul_plain(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
 # --- the CUDA kernels --------------------------------------------------------
 
 FP_KERNEL = "bls_fp"            # csrc/bls_fp.cu
-# kernel launches since import (reset by callers that count a run)
+#: lanes a field element may take on the card (csrc/bls_fp.cu's `Team`)
+GROUP_SIZES = (2, 4, 8, 16, 32)
+# kernel launches since import, in total and by row count (reset by
+# callers that count a run)
 MUL_LAUNCHES = 0
 REDUCE_LAUNCHES = 0
+MUL_ROWS: collections.Counter = collections.Counter()
+REDUCE_ROWS: collections.Counter = collections.Counter()
 
 def least_products(with_product: bool) -> int:
     """32-bit multiply-adds the least work of a kernel's function needs
@@ -257,14 +267,27 @@ def least_products(with_product: bool) -> int:
 MUL_INT32_OPS = least_products(True)
 REDUCE_INT32_OPS = least_products(False)
 
+#: lanes a field element takes by the launch's row count, (rows at
+#: least, lanes): the fastest on an H100 at the row counts that
+#: scripts/bls_fp_probe.py timed (PERF.md §6).  Small launches want the
+#: shortest latency, large ones the fewest redundant window products.
+MUL_GROUPS = ((0, 32), (1536, 8), (12_288, 4))
+REDUCE_GROUPS = ((0, 16), (4096, 4), (32_768, 2))
+
+
+def group_size(rows: int, table) -> int:
+    """Lanes a field element takes in a launch of `rows` rows."""
+    return [g for lo, g in table if rows >= lo][-1]
+
 
 @functools.lru_cache(maxsize=None)
 def _fp_lib() -> ctypes.CDLL:
     lib = cuda_build.load(FP_KERNEL)
-    lib.ag_bls_fp_mul.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_void_p]
-    lib.ag_bls_fp_reduce.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.ag_bls_fp_mul.argtypes = [ctypes.c_void_p, ctypes.c_int64] * 2 + [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.ag_bls_fp_reduce.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.ag_bls_fp_mul.restype = ctypes.c_int
     lib.ag_bls_fp_reduce.restype = ctypes.c_int
     return lib
@@ -281,65 +304,90 @@ def _check_rows(name: str, *ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def _limbs_first(a: torch.Tensor) -> torch.Tensor:
-    """[..., NLIMBS] -> contiguous [NLIMBS, R] (coalesced loads)."""
-    return a.reshape(-1, NLIMBS).t().contiguous()
+def _rows(a: torch.Tensor, lead) -> Tuple[torch.Tensor, int]:
+    """`a` broadcast to lead + [NLIMBS] as R rows the kernel reads in
+    place: (tensor, row stride in int32 words).  A broadcast row has
+    stride 0; only leading dims that no single stride covers (or limbs
+    that are not adjacent) cost a copy.  The lane's usual operands (a
+    contiguous stack, one constant row) take no torch op at all: the
+    lane is bound by its host path."""
+    if a.is_contiguous():
+        if a.shape[:-1] == lead:
+            return a, NLIMBS
+        if a.dim() == 1:
+            return a, 0
+    b = a.expand(tuple(lead) + (NLIMBS,))
+    try:
+        v = b.view(-1, NLIMBS)
+    except RuntimeError:
+        v = b.reshape(-1, NLIMBS)
+    if v.stride(1) != 1:
+        v = v.contiguous()
+    return v, v.stride(0)
+
+
+def _launch(fn, dev: torch.device, *args) -> None:
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(fn, dev, *args)
+    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bls_fp launch failed: CUDA error {err}")
 
 
 def mul_rows(xa: torch.Tensor, ya: torch.Tensor) -> torch.Tensor:
     """Fused multiply + Barrett reduce over [..., NLIMBS] limbs (leading
-    shapes broadcast) -> [..., NLIMBS] strict limbs of a < 4p
+    shapes broadcast) -> contiguous [..., NLIMBS] strict limbs of a < 4p
     representative, limb for limb the twin's rolled path.  The caller
     (`fv_mul_pairs`) has enforced the Barrett precondition through the
-    static FV bounds.  CUDA tensors launch the kernel, CPU tensors run
-    `mul_plain`."""
+    static FV bounds.  CUDA tensors launch the kernel once, reading the
+    operands' rows in place; CPU tensors run `mul_plain`."""
     global MUL_LAUNCHES
     dev = _check_rows("mul_rows", xa, ya)
     if dev.type == "cpu":
         return mul_plain(xa, ya)
-    xa, ya = torch.broadcast_tensors(xa, ya)
-    lead = xa.shape[:-1]
-    xt, yt = _limbs_first(xa), _limbs_first(ya)
-    out = torch.empty_like(xt)
-    R = out.shape[1]
+    lead = xa.shape[:-1] if xa.shape == ya.shape else \
+        torch.broadcast_shapes(xa.shape[:-1], ya.shape[:-1])
+    out = torch.empty(tuple(lead) + (NLIMBS,), dtype=I32, device=dev)
+    R = out.numel() // NLIMBS
     if R:
-        lib = _fp_lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.ag_bls_fp_mul(xt.data_ptr(), yt.data_ptr(),
-                                    out.data_ptr(), R, stream)
-        if err != 0:
-            raise RuntimeError(f"bls_fp mul launch failed: CUDA error {err}")
+        (xv, sa), (yv, sb) = _rows(xa, lead), _rows(ya, lead)
+        _launch(_fp_lib().ag_bls_fp_mul, dev, xv.data_ptr(), sa,
+                yv.data_ptr(), sb, out.data_ptr(), R,
+                group_size(R, MUL_GROUPS))
         MUL_LAUNCHES += 1
-    return out.t().reshape(lead + (NLIMBS,))
+        MUL_ROWS[R] += 1
+    return out
 
 
 def reduce_rows(cols: torch.Tensor, passes: int) -> torch.Tensor:
     """Barrett reduce + carry chain over [..., NLIMBS] NON-NEGATIVE
     columns (value < REDUCE_CAP) after `passes` carry passes -> strict
     < 4p limbs, limb for limb the twin's rolled `reduce_cols`.  CUDA
-    tensors launch the kernel, CPU tensors run `reduce_plain`."""
+    tensors launch the kernel once (contiguous [..., NLIMBS] out) at the
+    lane's pass counts, 1 and 2: its q * p uses the 3 quotient limbs that
+    columns below 2^19 let be nonzero (csrc/bls_fp.cu).  CPU tensors run
+    `reduce_plain`."""
     global REDUCE_LAUNCHES
     dev = _check_rows("reduce_rows", cols)
     if not 1 <= int(passes) <= 8:
         raise ValueError(f"reduce_rows: passes must be in [1, 8]: {passes}")
     if dev.type == "cpu":
         return reduce_plain(cols, passes)
+    if int(passes) > 2:
+        raise ValueError(f"reduce_rows: the reduce kernel takes the "
+                         f"lane's pass counts, 1 or 2, not {passes}")
     lead = cols.shape[:-1]
-    ct = _limbs_first(cols)
-    out = torch.empty_like(ct)
-    R = out.shape[1]
+    out = torch.empty(tuple(lead) + (NLIMBS,), dtype=I32, device=dev)
+    R = out.numel() // NLIMBS
     if R:
-        lib = _fp_lib()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.ag_bls_fp_reduce(ct.data_ptr(), out.data_ptr(), R,
-                                       int(passes), stream)
-        if err != 0:
-            raise RuntimeError(
-                f"bls_fp reduce launch failed: CUDA error {err}")
+        cv, sc = _rows(cols, lead)
+        _launch(_fp_lib().ag_bls_fp_reduce, dev, cv.data_ptr(), sc,
+                out.data_ptr(), R, int(passes),
+                group_size(R, REDUCE_GROUPS))
         REDUCE_LAUNCHES += 1
-    return out.t().reshape(lead + (NLIMBS,))
+        REDUCE_ROWS[R] += 1
+    return out
 
 
 # --- Barrett reduction ------------------------------------------------------

@@ -18,6 +18,12 @@ Port notes:
   round-skip argmax runs over an int32 cast because CUDA's argmax takes
   no bool.
 * Every reduction pins `dtype=torch.int32` (torch sums ints to int64).
+* The two quorum products (`3 * w > 2 * total`, `3 * w_skip > total`)
+  are compared in int64, so a power table whose total is near 2^31
+  decides as the host oracle does (`core.round_votes`, Python ints);
+  every stored leaf stays int32.  The JAX twin compares in int32 and
+  wraps there (a single validator of power 715,827,883 never reaches
+  quorum): a deliberate departure, pinned by tests/test_torch_quorum.py.
 """
 
 from __future__ import annotations
@@ -112,8 +118,8 @@ def _thresh_code(weights_row: torch.Tensor, total: torch.Tensor
     nil_w = weights_row[..., 0]
     val_w = weights_row[..., 1:]
 
-    def q(w):
-        return 3 * w > 2 * total      # round_votes.rs:31-33
+    def q(w):                         # round_votes.rs:31-33, in int64
+        return 3 * w.long() > 2 * total.long()
 
     val_q = q(val_w)
     has_val = val_q.any(dim=-1)
@@ -240,7 +246,7 @@ def add_votes(tally: TallyState,
     w_skip = tally.skip_w + torch.where(onehot_r, dskip[:, None],
                                         torch.zeros_like(tally.skip_w))
     abs_round = tally.base_round[:, None] + _arange(W, widx)[None, :]
-    eligible = ((3 * w_skip > total_power)
+    eligible = ((3 * w_skip.long() > total_power.long())
                 & (abs_round > cur_round[:, None])
                 & ~tally.skipped)                                    # [I, W]
     any_skip = eligible.any(dim=1)

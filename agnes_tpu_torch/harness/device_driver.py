@@ -56,6 +56,17 @@ class DriverStats:
     decision_round: Optional[np.ndarray] = None
 
 
+def _int32_total(powers: np.ndarray) -> int:
+    """The total voting power of a table, refused (ValueError) unless
+    every power and the total fit the device's int32 leaves."""
+    pw = np.asarray(powers).astype(np.int64)
+    total = int(pw.sum())
+    if (pw < 0).any() or (pw >= 2**31).any() or total >= 2**31:
+        raise ValueError(f"voting powers must be non-negative with a total "
+                         f"below 2^31 (int32 tally); total {total}")
+    return total
+
+
 class DeviceDriver:
     """I instances x V validators on one device (default "cuda")."""
 
@@ -74,7 +85,8 @@ class DeviceDriver:
         self.state = DeviceState.new((self.I,), device=self.device)
         self.tally = TallyState.new(self.I, self.cfg, device=self.device)
         self.powers = torch.ones((self.V,), dtype=I32, device=self.device)
-        self.total = torch.tensor(self.V, dtype=I32, device=self.device)
+        self.total = torch.tensor(_int32_total(np.ones(self.V, np.int64)),
+                                  dtype=I32, device=self.device)
         # every instance's node proposes every round by default
         self.proposer_flag = torch.full((self.I, n_rounds),
                                         bool(proposer_is_self),
@@ -88,13 +100,14 @@ class DeviceDriver:
 
     def set_validators(self, powers) -> None:
         """Validator-set epoch at a height boundary: re-upload the
-        voting-power table the quorum math uses (shape [V] is fixed)."""
+        voting-power table the quorum math uses (shape [V] is fixed).
+        A table whose total does not fit int32 raises ValueError."""
         pw = np.asarray(powers)
         if pw.shape != (self.V,):
             raise ValueError(f"powers must be [{self.V}], got {pw.shape}")
+        total = _int32_total(pw)
         self.powers = torch.tensor(pw, dtype=I32, device=self.device)
-        self.total = torch.tensor(int(pw.sum()), dtype=I32,
-                                  device=self.device)
+        self.total = torch.tensor(total, dtype=I32, device=self.device)
 
     # -- phase builders ------------------------------------------------------
 

@@ -21,10 +21,15 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      also against the oracle); `verify_batch(window=4)`, the window-4
      kernel's public entry, is driven once with its launch count;
   2c. holds the BLS12-381 field kernels (multiply, reduce) against their
-     plain versions on the card, limb for limb, on the boundary values
-     0, 1, p-1, p, 4p-1 and random rows, the reduce at 1 and 2 carry
-     passes, and times both at a G2 add's stack at rung 1,024 (18,432
-     rows) and at 1,048,576 rows (`bls_kernels`);
+     plain versions on the card, limb for limb, at every group size, on
+     the boundary values 0, 1, p-1, p, 4p-1 and random rows, the reduce
+     at 1 and 2 carry passes, and times both (`bls_fp_probe.device_ms`)
+     at a G2 add's stack at rung 1,024 (18,432 rows) and at 1,048,576
+     rows; after
+     phase 6 also at every row count the lane launched them with
+     (`BlsFp`).  With `--parent-csrc DIR` (the `csrc/` of an earlier
+     checkout) each shape also times that checkout's kernels, which
+     must give the same limbs;
   2d. runs the layout microbenchmark's own path
      (`agnes_tpu_torch.scripts.microbench_layout.main`: its six rows at
      T = 16,384 lanes, N_CHAIN 64 and 128, the fe13_chain kernel timed
@@ -65,7 +70,9 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      BlsLane.table.fold -> poll -> clear_classes (the MSMs and two
      device pairing dispatches) -> VoteBatcher.add_class_votes ->
      build_phases -> DeviceDriver.step_seq, then a class with one forged
-     share (`bls_lane_phase`);
+     share (`bls_lane_phase`); the field kernels' launches by row count
+     per bls_aggregate and per bls_pairing_product call, and each
+     call's kernel ms estimated as the sum of launches x ms over them;
   7. checkpoint, resume and signed evidence at full validator width:
      I = 1,024 x V = 1,000 as phase 3 builds it (validator 7 forged in
      both classes) with validator 9 also signing value 8 in the prevote
@@ -83,7 +90,8 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      `utils.tracing.span`s of a `Tracer` whose chrome trace must parse
      and hold every stage (`checkpoint_phase`).
 
-Prints a JSON line of kernel numbers, the `nvidia-smi` name/power line,
+Prints a JSON line of kernel numbers (rows 4-5 with every timed shape),
+the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
 without a CUDA device, 2 outside the repository.
@@ -97,6 +105,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 DEVICE = "cuda"
 SEED = 20261016
@@ -189,74 +199,114 @@ class Bound:
                 "operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def bls_kernels(rng, bound) -> dict:
-    """Phase 2c: the BLS12-381 field kernels (csrc/bls_fp.cu) against
-    their plain versions on the card — the boundary values of
-    tests/test_pallas_field.py and random rows, 0 mismatching limbs; the
-    reduce at each pass count the lane uses (1: fv_reduce, fv_strict; 2:
-    fv_mul_small by 12) — then each timed by CUDA events at a G2 add's
-    fv_mul_pairs stack at rung 1,024 and at 1,048,576 rows, beside its
-    plain version and its bound.  Returns name -> (mismatches, max |err|,
-    ms, plain ms, bound ms, bound_by, (ms, plain ms, bound ms) at
-    1,048,576 rows)."""
-    import numpy as np
-    import torch
+class BlsFp:
+    """Phase 2c: the BLS12-381 field kernels (csrc/bls_fp.cu) on the
+    card.  `check` holds both against their plain versions, limb for
+    limb, at every group size G: the boundary values 0, 1, p-1, p, 4p-1
+    of tests/test_pallas_field.py and random rows, the reduce at each
+    pass count the lane uses (1: fv_reduce, fv_strict; 2: fv_mul_small
+    by 12).  `time_at` times each through its wrapper (the G the wrapper
+    picks) at a row count by `bls_fp_probe.device_ms` (launches queued
+    while the card sleeps, so the time is the card's and not the Python
+    launch path's), beside its plain version (0
+    mismatching limbs on every timed row), its bound and, given the
+    `csrc/` of an earlier checkout (`--parent-csrc`), that checkout's
+    kernel as its wrapper ran it (equal outputs too)."""
 
-    from agnes_tpu_torch.crypto import bls_field as BF
-    from agnes_tpu_torch.crypto.bls_ref import P as PB
+    def __init__(self, rng, bound):
+        import numpy as np
+        import torch
 
-    dev = torch.device(DEVICE)
-    edges = [BF.to_limbs(v) for v in (0, 1, PB - 1, PB, 4 * PB - 1)]
+        from agnes_tpu_torch.crypto import bls_field as BF
+        from agnes_tpu_torch.crypto.bls_ref import P as PB
+        from agnes_tpu_torch.scripts import bls_fp_probe
 
-    def below(bound_v):
-        return int.from_bytes(rng.bytes(56), "little") % bound_v
+        self.BF, self.bound, self.rng = BF, bound, rng
+        self.probe = bls_fp_probe
+        self.dev = torch.device(DEVICE)
+        self.edges = [BF.to_limbs(v) for v in (0, 1, PB - 1, PB, 4 * PB - 1)]
+        self.PB, self.np, self.torch = PB, np, torch
+        self.parent = None
+        self.base = bls_fp_probe.operand_rows(rng, 4096, self.dev)
+        self.shapes = {"bls_fp_mul": {}, "bls_fp_reduce": {}}
+        self.err = {"bls_fp_mul": 0, "bls_fp_reduce": 0}
+        self.mism = {"bls_fp_mul": 0, "bls_fp_reduce": 0}
 
-    def operands(n):
-        """[n, 33]: the edges, then loose rows a + b (a, b < 2p), the
-        operand envelope of fv_mul_pairs."""
-        out = edges + [BF.to_limbs(below(2 * PB)) + BF.to_limbs(below(2 * PB))
-                       for _ in range(n - len(edges))]
-        return torch.from_numpy(np.stack(out).astype(np.int32)).to(dev)
+    def below(self, bound_v):
+        return int.from_bytes(self.rng.bytes(56), "little") % bound_v
 
-    def sums3(n):
+    def sums3(self, n):
         """[n, 33]: the edges, then sums of 3 values < 4p/3 (limbs <= 3 x
         4095, value < 4p): fv_reduce's columns, one pass."""
-        out = edges + [sum(BF.to_limbs(below(4 * PB // 3)) for _ in range(3))
-                       for _ in range(n - len(edges))]
-        return torch.from_numpy(np.stack(out).astype(np.int32)).to(dev)
+        out = self.edges + [sum(self.BF.to_limbs(self.below(4 * self.PB // 3))
+                                for _ in range(3))
+                            for _ in range(n - len(self.edges))]
+        return self.torch.from_numpy(
+            self.np.stack(out).astype(self.np.int32)).to(self.dev)
 
-    def chunked(fn, *xs):
-        return torch.cat([fn(*(x[i:i + BLS_PLAIN_CHUNK] for x in xs))
-                          for i in range(0, xs[0].shape[0], BLS_PLAIN_CHUNK)])
+    def check(self) -> None:
+        BF = self.BF
+        xa = self.probe.operand_rows(self.rng, N_RANDOM, self.dev)
+        ya = xa.flip(0).contiguous()
+        cases = [("bls_fp_mul", lambda: BF.mul_rows(xa, ya),
+                  BF.mul_plain(xa, ya))]
+        for cols, passes in ((self.sums3(N_RANDOM), 1), (xa * 12, 2)):
+            cases.append(("bls_fp_reduce",
+                          lambda c=cols, k=passes: BF.reduce_rows(c, k),
+                          BF.reduce_plain(cols, passes)))
+        tables = (BF.MUL_GROUPS, BF.REDUCE_GROUPS)
+        try:
+            for g in BF.GROUP_SIZES:
+                BF.MUL_GROUPS = BF.REDUCE_GROUPS = ((0, g),)
+                for name, kern, want in cases:
+                    m, e = compare(kern(), want)
+                    self.mism[name] += m
+                    self.err[name] = max(self.err[name], e)
+        finally:
+            BF.MUL_GROUPS, BF.REDUCE_GROUPS = tables
+        if any(self.mism.values()):
+            raise AssertionError(f"bls_fp kernels != plain: {self.mism}")
+        # one launch a wrapper call: no PyTorch op inside it but views and
+        # the output's allocation (no copy, no transpose), one count each
+        from torch.utils._python_dispatch import TorchDispatchMode
 
-    xa = operands(N_RANDOM)
-    ya = xa.flip(0).contiguous()
-    mism_m, err_m = compare(BF.mul_rows(xa, ya), BF.mul_plain(xa, ya))
-    mism_r = err_r = 0
-    for cols, passes in ((sums3(N_RANDOM), 1), (xa * 12, 2)):
-        m, e = compare(BF.reduce_rows(cols, passes),
-                       BF.reduce_plain(cols, passes))
-        mism_r, err_r = mism_r + m, max(err_r, e)
-    if mism_m or mism_r:
-        raise AssertionError(f"bls_fp kernels != plain: mul {mism_m} rows, "
-                             f"reduce {mism_r} rows")
-    log(f"[bls_fp] mul kernel == plain on {N_RANDOM} rows; reduce kernel == "
-        f"plain on {N_RANDOM} rows at 1 and at 2 carry passes (the edges "
-        f"0, 1, p-1, p, 4p-1 in each)")
+        ops = []
 
-    base = operands(4096)
-    out = {}
-    for name in ("bls_fp_mul", "bls_fp_reduce"):
-        res = []
-        for n in (BLS_REAL_ROWS, BLS_BIG_ROWS):
-            x = base.repeat(-(-n // 4096), 1)[:n].contiguous()
-            y = x.flip(0).contiguous()
+        class Log(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                ops.append(str(func))
+                return func(*args, **(kwargs or {}))
+
+        cols, const = self.sums3(64), ya[0]      # a broadcast constant
+        n0 = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+        with Log():
+            BF.mul_rows(xa, const)
+            BF.reduce_rows(cols, 1)
+        if (BF.MUL_LAUNCHES - n0[0], BF.REDUCE_LAUNCHES - n0[1]) != (1, 1) \
+                or not all(o.startswith(("aten.empty.", "aten.expand.",
+                                         "aten.view.")) for o in ops):
+            raise AssertionError(f"bls_fp wrappers launched more: {ops}")
+        log(f"[bls_fp] mul kernel == plain on {N_RANDOM} rows; reduce kernel "
+            f"== plain on {N_RANDOM} rows at 1 and at 2 carry passes (the "
+            f"edges 0, 1, p-1, p, 4p-1 in each); at G = "
+            f"{', '.join(map(str, BF.GROUP_SIZES))}; a wrapper call is one "
+            f"launch and no other op ({', '.join(sorted(set(ops)))})")
+
+    def time_at(self, n: int) -> None:
+        """Both kernels at n rows (skipped where already timed)."""
+        BF = self.BF
+        x = self.base.repeat(-(-n // 4096), 1)[:n].contiguous()
+        y = x.flip(0).contiguous()
+        for name in ("bls_fp_mul", "bls_fp_reduce"):
+            if n in self.shapes[name]:
+                continue
             if name == "bls_fp_mul":
                 def kern():
                     return BF.mul_rows(x, y)
 
                 def plain():
                     return chunked(BF.mul_plain, x, y)
+                par = self.parent and (lambda: self.parent.mul(x, y))
                 ops, nbytes = BF.MUL_INT32_OPS, 3 * BF.NLIMBS * 4
             else:
                 def kern():
@@ -264,27 +314,45 @@ def bls_kernels(rng, bound) -> dict:
 
                 def plain():
                     return chunked(lambda c: BF.reduce_plain(c, 1), x)
+                par = self.parent and (lambda: self.parent.reduce(x, 1))
                 ops, nbytes = BF.REDUCE_INT32_OPS, 2 * BF.NLIMBS * 4
+            reps = max(KERNEL_REPS, min(200, (1 << 22) // n))
             kern()                                        # warm
-            k_ms = cuda_ms(kern, KERNEL_REPS)
+            k_ms = self.probe.device_ms(kern, reps)
             got = {}
             p_ms = cuda_ms(lambda: got.setdefault("y", plain()), 1)
-            m, e = compare(kern(), got.pop("y"))
+            want = got.pop("y")
+            m, e = compare(kern(), want)
+            table = (BF.MUL_GROUPS if name == "bls_fp_mul"
+                     else BF.REDUCE_GROUPS)
+            rec = {"rows": n, "group": BF.group_size(n, table), "ms": k_ms,
+                   "plain_ms": p_ms, "parent_ms": None}
+            if par:
+                par()
+                rec["parent_ms"] = self.probe.device_ms(par, reps)
+                m += compare(par(), want)[0]
             if m:
-                raise AssertionError(f"{name} != plain on {m} of {n} rows")
-            b_ms, b_by = bound(ops * n, nbytes * n)
-            res.append((k_ms, p_ms, b_ms, b_by, e))
-            log(f"[{name}] R={n}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}; {ops} int32 ops/element at "
-                f"{bound.desc}), kernel at {100 * b_ms / k_ms:.3g}% of the "
-                f"bound")
-            del x, y
-        (k_ms, p_ms, b_ms, b_by, e), big = res
-        mism, err = (mism_m, err_m) if name == "bls_fp_mul" else (mism_r, err_r)
-        out[name] = (mism, max(err, e, big[4]), k_ms, p_ms, b_ms, b_by,
-                     big[:3])
-    torch.cuda.empty_cache()
-    return out
+                raise AssertionError(f"{name} != plain (or parent) on {m} of "
+                                     f"{n} rows")
+            self.err[name] = max(self.err[name], e)
+            rec["bound_ms"], rec["bound_by"] = self.bound(ops * n,
+                                                          nbytes * n)
+            self.shapes[name][n] = rec
+            log(f"[{name}] R={n} (G={rec['group']}): kernel {k_ms:.4f} ms"
+                + (f", parent {rec['parent_ms']:.4f} ms" if par else "")
+                + f", plain {p_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; {ops} int32 ops/element at "
+                f"{self.bound.desc}), kernel at "
+                f"{100 * rec['bound_ms'] / k_ms:.3g}% of the bound")
+        del x, y
+        self.torch.cuda.empty_cache()
+
+
+def chunked(fn, *xs):
+    import torch
+
+    return torch.cat([fn(*(x[i:i + BLS_PLAIN_CHUNK] for x in xs))
+                      for i in range(0, xs[0].shape[0], BLS_PLAIN_CHUNK)])
 
 
 def bls_stake(V: int):
@@ -387,6 +455,7 @@ def bls_lane_phase() -> dict:
     def traced(entry, fn):
         def run(*a, **k):
             n0 = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+            h0 = (BF.MUL_ROWS.copy(), BF.REDUCE_ROWS.copy())
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
             out = fn(*a, **k)
@@ -394,6 +463,8 @@ def bls_lane_phase() -> dict:
             calls.append({"entry": entry, "ev": ev,
                           "bls_fp_mul": BF.MUL_LAUNCHES - n0[0],
                           "bls_fp_reduce": BF.REDUCE_LAUNCHES - n0[1],
+                          "rows": {"bls_fp_mul": BF.MUL_ROWS - h0[0],
+                                   "bls_fp_reduce": BF.REDUCE_ROWS - h0[1]},
                           "out": out if len(calls) == 0 else None})
             return out
         return run
@@ -406,6 +477,8 @@ def bls_lane_phase() -> dict:
     try:
         torch.cuda.synchronize()
         BF.MUL_LAUNCHES = BF.REDUCE_LAUNCHES = 0
+        BF.MUL_ROWS.clear()
+        BF.REDUCE_ROWS.clear()
         t0 = time.perf_counter()
         folded = lane.table.fold(wire)
         closed = lane.poll()
@@ -490,12 +563,23 @@ def bls_lane_phase() -> dict:
         log(f"[bls] {n} launches: {launches[n]} in the run; per "
             f"bls_aggregate {per[n]['bls_aggregate']}, per "
             f"bls_pairing_product {per[n]['bls_pairing_product']}")
+    # launches by row count, per call (the first of each entry; the
+    # others are checked alike)
+    hists = {n: {} for n in launches}
+    for n in launches:
+        for e in ("bls_aggregate", "bls_pairing_product"):
+            hs = [c["rows"][n] for c in main_calls if c["entry"] == e]
+            hists[n][e] = dict(sorted(hs[0].items()))
+            log(f"[bls] {n} launches by rows per {e} (R: launches; all "
+                f"{len(hs)} calls alike: {all(h == hs[0] for h in hs)}): "
+                + ", ".join(f"{r}: {k}" for r, k in hists[n][e].items()))
     log(f"[bls forged] 4 signers, 1 forged: rejected {f_rej}, rows "
         f"{f_rows['validator'].tolist()}, calls " + ", ".join(
             f"{c['entry']} {c['ms']:.1f} ms" for c in f_calls))
     return {n: {"total": launches[n],
                 "bls_aggregate": per[n]["bls_aggregate"][0],
-                "bls_pairing_product": per[n]["bls_pairing_product"][0]}
+                "bls_pairing_product": per[n]["bls_pairing_product"][0],
+                "rows": hists[n]}
             for n in launches}
 
 
@@ -721,7 +805,14 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent-csrc", default=None,
+                    help="csrc/ of an earlier checkout: phase 2c also times "
+                         "its bls_fp kernels beside this one's")
+    parent_csrc = ap.parse_args(argv).parent_csrc
     try:
         import numpy as np
         import torch
@@ -744,6 +835,7 @@ def main() -> int:
         from agnes_tpu_torch.crypto import verify as V
         from agnes_tpu_torch.harness import fixtures as fx
         from agnes_tpu_torch.harness.device_driver import DeviceDriver
+        from agnes_tpu_torch.scripts import bls_fp_probe
         from agnes_tpu_torch.scripts import microbench_layout as MB
         from agnes_tpu_torch.types import VoteType
     except ImportError as e:
@@ -764,9 +856,24 @@ def main() -> int:
     kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL, BF.FP_KERNEL,
                MB.KERNEL]
     t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    if parent_csrc is not None:
+        def build_parent():
+            d = cuda_build.BUILD / "parent"
+            d.mkdir(parents=True, exist_ok=True)
+            src = d / "bls_fp.cu"
+            src.write_bytes((Path(parent_csrc) / "bls_fp.cu").read_bytes())
+            usage, secs = bls_fp_probe.nvcc(src, src.with_suffix(".so"))
+            log(f"[build] parent bls_fp: nvcc {secs:.1f} s; {usage}")
+            return bls_fp_probe.ParentKernels(src.with_suffix(".so"))
+        parent_job = pool.submit(build_parent)
     cuda_build.build_all(kernels)
-    log(f"[build] {len(kernels)} sources in parallel: "
-        f"{time.perf_counter() - t0:.1f} s")
+    if parent_csrc is not None:
+        parent_job.result()
+    pool.shutdown()
+    log(f"[build] {len(kernels)} sources in parallel"
+        + (" (and the parent's bls_fp)" if parent_csrc else "")
+        + f": {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         log(f"[build] {name}: nvcc {cuda_build.build_seconds[name]:.1f} s")
         for line in cuda_build.ptxas_report(name):
@@ -883,7 +990,12 @@ def main() -> int:
     del q_k, q_p, a_st
 
     # -- phase 2c: the BLS12-381 field kernels vs plain on the card -------
-    bls_k = bls_kernels(rng, bound)
+    bls_fp = BlsFp(rng, bound)
+    if parent_csrc is not None:
+        bls_fp.parent = parent_job.result()
+    bls_fp.check()
+    for n in (BLS_REAL_ROWS, BLS_BIG_ROWS):
+        bls_fp.time_at(n)
 
     # -- phase 2d: the layout microbenchmark and its chain kernel ---------
     rows["fe13_chain"] = chain_phase(bound)
@@ -1190,21 +1302,54 @@ def main() -> int:
         "lanes": n_msm}
     # -- phase 6: the BLS aggregate lane at full validator width ----------
     bls_n = bls_lane_phase()
-    for name, (mism, err, ms, plain_ms, bound_ms, bound_by, big) in bls_k.items():
+    # phase 2c at the lane's row counts, then kernel ms per call:
+    # sum over its row counts of launches x ms
+    for n in sorted({r for k in bls_n.values() for h in k["rows"].values()
+                     for r in h}):
+        bls_fp.time_at(n)
+    for name in ("bls_fp_mul", "bls_fp_reduce"):
+        sh = bls_fp.shapes[name]
+        est = {e: sum(k * sh[r]["ms"] for r, k in h.items())
+               for e, h in bls_n[name]["rows"].items()}
+        est_parent = ({e: sum(k * sh[r]["parent_ms"] for r, k in h.items())
+                       for e, h in bls_n[name]["rows"].items()}
+                      if bls_fp.parent else None)
+        top = {e: sorted(h, key=lambda r: -h[r])[:2]
+               for e, h in bls_n[name]["rows"].items()}
+        log(f"[bls] {name} kernel ms per call (sum of launches x ms over its "
+            f"row counts): " + ", ".join(f"{e} {v:.3f}"
+                                         for e, v in est.items())
+            + (" (parent " + ", ".join(f"{e} {v:.3f}" for e, v in
+                                        est_parent.items()) + ")"
+               if est_parent else "")
+            + "; most-launched rows " + ", ".join(
+                f"{e} {top[e]}" for e in top))
+        keep = {BLS_REAL_ROWS, BLS_BIG_ROWS} | {r for t in top.values()
+                                                 for r in t}
+        real, big = sh[BLS_REAL_ROWS], sh[BLS_BIG_ROWS]
         rows[name] = {
             "route": "cuda", "source": "agnes_tpu_torch/csrc/bls_fp.cu",
             "replaces": ("agnes_tpu/crypto/pallas_field.py:162"
                          if name == "bls_fp_mul"
                          else "agnes_tpu/crypto/pallas_field.py:177"),
-            "launches": bls_n[name]["total"], "max_abs_err": err,
-            "mismatches": mism, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "lanes": BLS_REAL_ROWS,
+            "launches": bls_n[name]["total"],
+            "max_abs_err": bls_fp.err[name],
+            "mismatches": bls_fp.mism[name], "ms": real["ms"],
+            "plain_ms": real["plain_ms"], "bound_ms": real["bound_ms"],
+            "bound_by": real["bound_by"], "library_ms": None,
+            "parent_ms": real["parent_ms"], "lanes": BLS_REAL_ROWS,
             "launches_per_bls_aggregate": bls_n[name]["bls_aggregate"],
             "launches_per_bls_pairing_product":
                 bls_n[name]["bls_pairing_product"],
-            f"ms_{BLS_BIG_ROWS}": big[0], f"plain_ms_{BLS_BIG_ROWS}": big[1],
-            f"bound_ms_{BLS_BIG_ROWS}": big[2]}
+            f"ms_{BLS_BIG_ROWS}": big["ms"],
+            f"plain_ms_{BLS_BIG_ROWS}": big["plain_ms"],
+            f"bound_ms_{BLS_BIG_ROWS}": big["bound_ms"],
+            f"parent_ms_{BLS_BIG_ROWS}": big["parent_ms"],
+            "shapes": [sh[r] for r in sorted(keep)],
+            "launches_by_rows": {e: {str(r): k for r, k in h.items()}
+                                 for e, h in bls_n[name]["rows"].items()},
+            "kernel_ms_per_call": est,
+            "parent_kernel_ms_per_call": est_parent}
     # -- phase 7: checkpoint, resume and signed evidence ------------------
     rows["ed25519_verify_signed5"]["launches_checkpoint_phase"] = \
         checkpoint_phase(seeds, pubkeys, sigs)
@@ -1221,10 +1366,16 @@ def main() -> int:
             "bls_fp_mul": (BF.FP_KERNEL, "bls_fp_mul_kernel"),
             "bls_fp_reduce": (BF.FP_KERNEL, "bls_fp_reduce_kernel"),
             "fe13_chain": (MB.KERNEL, "fe13_chain_kernel")}.items():
-        usage = [u for f, u in cuda_build.ptxas_usage(src).items() if fn in f]
-        if len(usage) != 1 or len(usage[0]) != 3:
+        usage = {f: u for f, u in cuda_build.ptxas_usage(src).items()
+                 if fn in f}
+        if not usage or any(len(u) != 3 for u in usage.values()):
             raise AssertionError(f"no ptxas report for {fn} in {src}: {usage}")
-        rows[n].update(usage[0])
+        # several instances (the BLS kernels' group sizes): the largest
+        # of each, and each instance's own
+        rows[n].update({k: max(u[k] for u in usage.values())
+                        for k in ("registers", "stack_bytes", "spill_bytes")})
+        if len(usage) > 1:
+            rows[n]["ptxas_by_function"] = usage
     print(json.dumps({"kernels": [dict(name=n, **rows[n]) for n in order]}),
           flush=True)
     print(card, flush=True)

@@ -141,6 +141,56 @@ def test_cuda_source_constants_pinned():
     # the least work each kernel's bound counts
     assert F.MUL_INT32_OPS == F.least_products(True) == 33 * 33 + 561 + 591
     assert F.REDUCE_INT32_OPS == F.least_products(False) == 1 + 3 * 32
+    assert int(re.search(r"constexpr int kQReduce = (\d+);", src)
+               .group(1)) == 3                   # the reduce's q limbs
+    # the group sizes the kernels launch with
+    for fn in ("launch_mul", "launch_reduce"):
+        cases = re.findall(rf"case (\d+): return {fn}<(\d+)>", src)
+        assert all(a == b for a, b in cases), fn
+        assert tuple(int(a) for a, _ in cases) == F.GROUP_SIZES, fn
+    sizes = re.search(r"static_assert\((G == [^\"]*),\s*\"group size\"\)",
+                      src)
+    assert tuple(int(g) for g in re.findall(r"G == (\d+)", sizes.group(1))
+                 ) == F.GROUP_SIZES
+    assert _cu_table("kPG") == _cu_table("kP")   # the reduce's copy of p
+    # the row-major contract: rows at a row stride in, contiguous rows out
+    for idx in ("xa[row * sa + l]", "ya[row * sb + l]",
+                "cols + mine * sc", "out[row * kN + l]"):
+        assert src.count(idx) >= 1, idx
+    assert "ag_bls_fp_mul(const int32_t* xa, int64_t sa," in src
+    assert "ag_bls_fp_reduce(const int32_t* cols, int64_t sc," in src
+
+
+def test_rows_are_read_in_place():
+    """The wrappers' row views (`bls_field._rows`): contiguous stacks,
+    broadcast constants, unbound and strided views keep their storage
+    and give one row stride; only a broadcast no stride covers copies;
+    the group size falls as the rows grow."""
+    base = torch.arange(6 * 4 * 33, dtype=torch.int32).view(6, 4, 33)
+    cases = [(base, (6, 4), 33), (base[0, 0], (6, 4), 0),
+             (base.unbind(-2)[1], (6,), 4 * 33), (base[:, 1:3], (6, 2), None),
+             (base[::2, 1], (3,), 2 * 4 * 33)]
+    def kernel_rows(v, s, n):
+        """The n rows the kernel reads: row i at word i * s of v."""
+        return torch.as_strided(v, (n, 33), (s, 1), v.storage_offset())
+
+    for a, lead, stride in cases:
+        v, s = F._rows(a, lead)
+        n = int(np.prod(lead))
+        np.testing.assert_array_equal(
+            kernel_rows(v, s, n).numpy(),
+            a.expand(lead + (33,)).reshape(-1, 33).numpy())
+        if stride is not None:
+            assert s == stride and v.data_ptr() == a.data_ptr()
+    v, s = F._rows(base[0, :2], (6, 2))          # strides (0, 33)
+    assert s == 33 and v.data_ptr() != base.data_ptr()   # copied
+    np.testing.assert_array_equal(kernel_rows(v, s, 12).numpy(),
+                                  base[0, :2].repeat(6, 1).numpy())
+    for table in (F.MUL_GROUPS, F.REDUCE_GROUPS):
+        sizes = [F.group_size(r, table)
+                 for r in (1, 432, 4096, 18_432, 70_000, 1 << 20)]
+        assert sizes == sorted(sizes, reverse=True)
+        assert set(sizes) <= set(F.GROUP_SIZES) and table[0][0] == 0
 
 
 def test_cpu_wrappers_refuse_bad_input():

@@ -1,7 +1,8 @@
 """Card-only tests of the port (marker `cuda`): each CUDA kernel (verify
 at windows 5 and 4, pow, Straus, the BLS12-381 field multiply and
 reduce, the microbenchmark's field-multiply chain) against its plain
-PyTorch version (and the verify against the RFC 8032 oracle), one small
+PyTorch version (and the verify against the RFC 8032 oracle; the BLS
+field kernels at every group size and at odd shapes), one small
 signed height, both verify windows at a ragged batch (4,117 lanes), one
 small MSM-mode height, one small BLS aggregate +
 pairing product and a checkpoint round trip with signed evidence
@@ -201,24 +202,100 @@ def _bls_rows(rng, n):
     return BF.ints_to_limbs(vals)
 
 
-def test_bls_fp_kernels_match_plain(cuda):
+def _torch_ops(fn):
+    """(result, the aten ops `fn()` dispatched): a wrapper whose ops are
+    all views and allocations launches no kernel of PyTorch's, so its
+    launch counter counts every kernel it launched."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log():
+        out = fn()
+    return out, ops
+
+
+#: aten ops that launch no kernel (views and allocations)
+_NO_KERNEL = ("aten.empty.", "aten.expand.", "aten.view.")
+
+
+def test_bls_fp_kernels_match_plain(cuda, monkeypatch):
     from agnes_tpu_torch.crypto import bls_field as BF
 
     rng = np.random.RandomState(6)
     xa = torch.from_numpy(_bls_rows(rng, 300)).to(cuda)
     ya = torch.from_numpy(_bls_rows(rng, 300)[::-1].copy()).to(cuda)
     loose = xa + ya.flip(0)                      # limbs <= 2 * 4095, < 8p
-    n0 = BF.MUL_LAUNCHES
-    got = BF.mul_rows(loose, ya)
-    assert BF.MUL_LAUNCHES == n0 + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  BF.mul_plain(loose, ya).cpu().numpy())
-    for cols, passes in ((xa * 3, 1), (xa * 12, 2)):
-        n0 = BF.REDUCE_LAUNCHES
-        got = BF.reduce_rows(cols, passes)
-        assert BF.REDUCE_LAUNCHES == n0 + 1
-        np.testing.assert_array_equal(
-            got.cpu().numpy(), BF.reduce_plain(cols, passes).cpu().numpy())
+    for g in BF.GROUP_SIZES:                     # every group size
+        monkeypatch.setattr(BF, "MUL_GROUPS", ((0, g),))
+        monkeypatch.setattr(BF, "REDUCE_GROUPS", ((0, g),))
+        n0 = BF.MUL_LAUNCHES
+        got = BF.mul_rows(loose, ya)
+        assert BF.MUL_LAUNCHES == n0 + 1
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      BF.mul_plain(loose, ya).cpu().numpy())
+        for cols, passes in ((xa * 3, 1), (xa * 12, 2)):
+            n0 = BF.REDUCE_LAUNCHES
+            got = BF.reduce_rows(cols, passes)
+            assert BF.REDUCE_LAUNCHES == n0 + 1
+            np.testing.assert_array_equal(
+                got.cpu().numpy(),
+                BF.reduce_plain(cols, passes).cpu().numpy())
+
+
+def test_bls_fp_kernels_at_odd_shapes(cuda, monkeypatch):
+    """At every group size: broadcast operands read in place (a [33]
+    constant beside [R, 33] rows, strided rows), R = 1, R off every
+    CTA's element count, and R = 0; one kernel launch a call (the
+    counters, and no PyTorch op but views and the output's allocation),
+    into a contiguous [..., 33] output."""
+    from agnes_tpu_torch.crypto import bls_field as BF
+
+    rng = np.random.RandomState(7)
+    big = torch.from_numpy(_bls_rows(rng, 70_001)).to(cuda)
+    wide = big.repeat(2, 1)
+    for g in BF.GROUP_SIZES:
+        monkeypatch.setattr(BF, "MUL_GROUPS", ((0, g),))
+        monkeypatch.setattr(BF, "REDUCE_GROUPS", ((0, g),))
+        for R in (1, 301, 9_001, 70_001):
+            x = big[:R]
+            y = big[-R:].flip(0)
+            const = big[R // 2]
+            strided = wide[1:2 * R:2]            # rows 66 words apart
+            for a, b in ((x, y), (const, y), (x, const), (strided, x),
+                         (x.view(1, R, 33), const)):
+                n0 = (BF.MUL_LAUNCHES, BF.MUL_ROWS[R])
+                got, ops = _torch_ops(lambda: BF.mul_rows(a, b))
+                assert (BF.MUL_LAUNCHES, BF.MUL_ROWS[R]) == (n0[0] + 1,
+                                                             n0[1] + 1)
+                assert all(o.startswith(_NO_KERNEL) for o in ops), ops
+                assert got.is_contiguous() and got.shape[-1] == 33
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), BF.mul_plain(a, b).cpu().numpy(),
+                    err_msg=f"mul G={g} R={R}")
+            for cols in (x * 3, strided, strided * 12):
+                passes = BF._passes_needed(int(cols.max()))
+                n0 = BF.REDUCE_LAUNCHES
+                got, ops = _torch_ops(lambda: BF.reduce_rows(cols, passes))
+                assert BF.REDUCE_LAUNCHES == n0 + 1
+                assert all(o.startswith(_NO_KERNEL) for o in ops), ops
+                assert got.is_contiguous()
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(),
+                    BF.reduce_plain(cols, passes).cpu().numpy(),
+                    err_msg=f"reduce G={g} R={R}")
+    n0 = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+    empty = big[:0]
+    assert BF.mul_rows(empty, empty).shape == (0, 33)
+    assert BF.reduce_rows(empty, 1).shape == (0, 33)
+    assert (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES) == n0
+    with pytest.raises(ValueError):
+        BF.reduce_rows(big[:4], 3)               # the kernel takes 1 or 2
 
 
 def test_bls_aggregate_and_pairing_on_default_device(cuda):

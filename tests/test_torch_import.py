@@ -33,6 +33,7 @@ from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
 from agnes_tpu_torch.serve.batcher import ShapeLadder
 from agnes_tpu_torch.scripts import microbench_layout as MB
+from agnes_tpu_torch.scripts import bls_fp_probe  # noqa: F401
 from agnes_tpu_torch.scripts import verify_probe  # noqa: F401
 from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry, BlsLane
 from agnes_tpu_torch.utils import (Tracer, load_batcher, load_driver,
