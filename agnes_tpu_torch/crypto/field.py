@@ -19,10 +19,12 @@ builds its columns with the same function, limbs first.
 `pow_p` (x^e for a static e) launches the hand-written CUDA kernel
 `csrc/ed25519_pow.cu` for tensors on the card and, for tensors on the
 CPU, runs `pow_plain` — a step-for-step transcription of the TPU kernel
-`pallas_ed25519._pow_kernel` — and freezes its result.  Both return
-canonical limbs in [0, p), so every later step sees the same limbs on
-either device.  A failed build or launch raises; `POW_LAUNCHES` counts
-kernel launches.
+`pallas_ed25519._pow_kernel` — and freezes its result.  The kernel
+follows the shortest known addition chain for the two exponents the
+port raises to ((p-5)/8 and p-2) and fixed 4-bit windows for any other
+(`pow_schedule`); both return canonical limbs in [0, p), so every later
+step sees the same limbs on either device.  A failed build or launch
+raises; `POW_LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -143,6 +145,13 @@ def limbs25(x: int) -> List[int]:
         out.append(x & ((1 << w) - 1))
         x >>= w
     return out
+
+
+def limbs32(v: int) -> List[int]:
+    """v in [0, 2^256) -> 8 radix-2^32 limbs, least significant first, as
+    int32 bit patterns (the layout of `csrc/fe25519_r32.cuh`)."""
+    return [((v >> (32 * i)) & 0xFFFFFFFF) - ((v >> (32 * i + 31)) & 1) * 2**32
+            for i in range(8)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -284,30 +293,58 @@ POW_LAUNCHES = 0
 
 
 def exponent_bits(e: int) -> List[int]:
-    """e's bits, most significant first (the loop's static bit string)."""
+    """e's bits, most significant first (the TPU kernel's static bit
+    string, which `pow_plain` walks)."""
     return [(e >> i) & 1 for i in reversed(range(e.bit_length()))]
-
-
-def pow_int32_ops(e: int) -> int:
-    """int32 operations a lane of the kernel does for exponent e (its
-    square-and-multiply loop): one squaring (55 32x32->64-bit products)
-    per bit and one multiply (100 products) per set bit, one int32
-    operation (an IMAD.WIDE) a product."""
-    bits = exponent_bits(e)
-    return 55 * len(bits) + 100 * sum(bits)
 
 
 # The shortest known addition chains of the exponents the port raises
 # to, as (squarings, multiplies): ref10's pow22523 for (p-5)/8 = 2^252 - 3
 # and its invert for p-2 = 2^255 - 21 (both build x^(2^250 - 1) from
-# x^(2^k - 1) blocks of 5, 10, 20, 10, 50, 100, 50 squarings).
+# x^(2^k - 1) blocks of 5, 10, 20, 10, 50, 100, 50 squarings).  The
+# kernel runs exactly these (`fe_pow22523`, `fe_invert` in
+# csrc/fe25519_r32.cuh).
 POW_CHAINS = {(P - 5) // 8: (251, 11), P - 2: (254, 11)}
+
+# the kernel's schedules (csrc/ed25519_pow.cu): 0 = fixed windows of
+# POW_WINDOW bits over the exponent's digits, else a chain of POW_CHAINS
+POW_CHAIN_IDS = {(P - 5) // 8: 1, P - 2: 2}
+POW_WINDOW = 4
+
+
+def pow_schedule(e: int) -> Tuple[int, Tuple[int, ...]]:
+    """(chain id, digits) the kernel takes for exponent e >= 1: a chain's
+    id and no digits, or 0 and e's radix-16 digits, most significant
+    first (the first not 0)."""
+    if e in POW_CHAIN_IDS:
+        return POW_CHAIN_IDS[e], ()
+    digits = []
+    while e:
+        digits.append(e & ((1 << POW_WINDOW) - 1))
+        e >>= POW_WINDOW
+    return 0, tuple(reversed(digits))
+
+
+def pow_int32_ops(e: int) -> int:
+    """int32 operations a lane of the kernel does for exponent e, one per
+    product of the radix-2^25.5 field's yardstick (55 a squaring, 100 a
+    multiply): the chain of `POW_CHAINS` for its exponents; otherwise the
+    window table x^2..x^15 (7 squarings, 7 multiplies), then per further
+    digit 4 squarings and a multiply where the digit is not 0."""
+    if e in POW_CHAINS:
+        n_sqr, n_mul = POW_CHAINS[e]
+    else:
+        digits = pow_schedule(e)[1]
+        n_sqr = 7 + POW_WINDOW * (len(digits) - 1)
+        n_mul = 7 + sum(1 for d in digits[1:] if d)
+    return 55 * n_sqr + 100 * n_mul
 
 
 def pow_least_int32_ops(e: int) -> int:
     """int32 operations x^e needs at least, per lane: the shortest known
     chain of `POW_CHAINS`, counted as `pow_int32_ops` counts.  The bound
-    of the pow kernel; the kernel's own loop does `pow_int32_ops(e)`."""
+    of the pow kernel, which runs that chain (`pow_int32_ops(e)` is the
+    same number)."""
     n_sqr, n_mul = POW_CHAINS[e]
     return 55 * n_sqr + 100 * n_mul
 
@@ -339,21 +376,23 @@ def pow_plain(x: torch.Tensor, e: int) -> torch.Tensor:
 def _pow_lib() -> ctypes.CDLL:
     lib = cuda_build.load(POW_KERNEL)
     fn = lib.ag_fe_pow
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _bits_tensor(e: int, device: torch.device) -> torch.Tensor:
-    return torch.tensor(exponent_bits(e), dtype=I32, device=device)
+def _digits_tensor(digits: Tuple[int, ...],
+                   device: torch.device) -> torch.Tensor:
+    return torch.tensor(digits or (0,), dtype=I32, device=device)
 
 
 def pow_p(x: torch.Tensor, e: int) -> torch.Tensor:
     """x^e mod p for [..., 20] int32 limbs (weak, signed) and a static
-    exponent e >= 1; canonical limbs out.  CUDA tensors launch the
-    kernel; CPU tensors run `pow_plain` and freeze."""
+    exponent e >= 1; canonical limbs out.  CUDA tensors launch the kernel
+    on the rows in place; CPU tensors run `pow_plain` and freeze."""
     global POW_LAUNCHES
     if x.dtype != I32 or x.shape[-1] != NLIMBS:
         raise ValueError(f"pow_p: [..., {NLIMBS}] int32 limbs, got "
@@ -365,21 +404,21 @@ def pow_p(x: torch.Tensor, e: int) -> torch.Tensor:
         return freeze(pow_plain(x, e))
     if dev.type != "cuda":
         raise ValueError(f"pow_p: unsupported device {dev}")
-    lead = x.shape[:-1]
-    xt = x.reshape(-1, NLIMBS).t().contiguous()           # [20, B]
-    B = xt.shape[1]
-    out = torch.empty_like(xt)
+    rows = x.reshape(-1, NLIMBS).contiguous()      # [B, 20], in place
+    out = torch.empty_like(rows)
+    B = rows.shape[0]
     if B:
-        bits = _bits_tensor(e, dev)
+        chain, digits = pow_schedule(e)
+        dig = _digits_tensor(digits, dev)
         lib = _pow_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.ag_fe_pow(xt.data_ptr(), bits.data_ptr(),
-                                bits.numel(), out.data_ptr(), B, stream)
+            err = lib.ag_fe_pow(rows.data_ptr(), out.data_ptr(), B, chain,
+                                dig.data_ptr(), len(digits), stream)
         if err != 0:
             raise RuntimeError(f"pow kernel launch failed: CUDA error {err}")
         POW_LAUNCHES += 1
-    return out.t().reshape(lead + (NLIMBS,))
+    return out.view(x.shape)
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,7 @@ from agnes_tpu_torch.crypto.field import (
     P,
     SUB_K,
     bytes32_to_limbs,
+    limbs32,
     to_limbs,
 )
 
@@ -429,13 +430,6 @@ def verify_plain(ya: torch.Tensor, sa: torch.Tensor, yr: torch.Tensor,
 
 
 # --- the CUDA kernel --------------------------------------------------------
-
-def limbs32(v: int) -> list:
-    """v in [0, 2^256) -> 8 radix-2^32 limbs, least significant first, as
-    int32 bit patterns (the verify kernel's field layout)."""
-    return [((v >> (32 * i)) & 0xFFFFFFFF) - ((v >> (32 * i + 31)) & 1) * 2**32
-            for i in range(8)]
-
 
 @functools.lru_cache(maxsize=None)
 def kernel_consts() -> Tuple[int, ...]:

@@ -2,72 +2,119 @@
 // for Hopper (sm_90a).
 //
 // Replaces the TPU kernel agnes_tpu/crypto/pallas_ed25519.py::_pow_kernel
-// (line 169): left-to-right square-and-multiply over the exponent's bits.
+// (line 169), which ran left-to-right square-and-multiply over e's bits.
 //
-//   in : x     [20, B]   int32  x as 20 signed radix-2^13 limbs (weak:
-//                               any sign, any residue; |limb| < 2^20)
-//        bits  [n_bits]  int32  e's bits, most significant first
-//   out: y     [20, B]   int32  x^e mod p, canonical (frozen) radix-2^13
-//                               limbs in [0, 2^13), value in [0, p)
+//   in : x       [B, 20]  int32  x as 20 signed radix-2^13 limbs a row
+//                                (weak: any sign, any residue;
+//                                |limb| < 2^20), rows contiguous
+//        chain   int             the exponent's schedule (below)
+//        digits  [n]      int32  kChainWindow only: e's radix-16 digits,
+//                                most significant first, digits[0] != 0
+//   out: y       [B, 20]  int32  x^e mod p, canonical (frozen) radix-2^13
+//                                limbs in [0, 2^13), value in [0, p)
 //
-// The TPU kernel took the bits lane-replicated ([n_bits, 512]) because
-// Mosaic could not broadcast along sublanes and lanes at once; here every
-// thread reads the same bit, so the exponent comes once and branching on
-// it does not diverge.  The input's limbs are weak and signed (the MSM
-// path passes a product straight from the field multiply), and the
-// radix-2^13 and radix-2^25.5 limb boundaries do not align, so the load
-// accumulates each 13-bit limb into its 25.5-bit column in int64 and
-// carries once (fe25519.cuh: fe_from_limbs13_weak).
+// The wrapper (crypto/field.py::pow_p) picks the schedule from e:
+//   kChainP58     e = (p-5)/8: fe_pow22523, 251 squarings + 11 multiplies;
+//   kChainInvert  e = p-2:     fe_invert, 254 squarings + 11 multiplies;
+//   kChainWindow  any other e >= 1: fixed 4-bit windows, a table of
+//                 x^0..x^15 (7 squarings, 7 multiplies) in local memory,
+//                 then per further digit 4 squarings and, where the digit
+//                 is not 0, one multiply.
+// Every lane takes the same schedule, so nothing diverges.  The output is
+// frozen, so every schedule gives the plain version's limbs.
 //
-// Bound on this card: integer ALU work.  x^((p-5)/8) needs at least the
-// shortest known addition chain, 251 squarings (55 32x32->64-bit
-// products each) and 11 multiplies (100 products): 14,905 products,
-// counted as 14,905 int32 operations a lane (one IMAD.WIDE a product) (crypto/field.py::
-// pow_least_int32_ops); memory is 160 bytes a lane.  chip_smoke.py
-// derives the bound from that count and the card's SM count and clock.
-// This kernel does more: its square-and-multiply loop over the bits
-// (252 squarings, 251 multiplies: 38,960 operations, pow_int32_ops), 2.6
-// times the chain.  The design is the simple one: the running power stays
-// in registers for the whole loop, with no other state.
+// Bound on this card: integer ALU work.  For the two exponents the port
+// raises to, a lane does exactly the shortest known addition chain that
+// the bound counts (crypto/field.py::pow_least_int32_ops: 14,905 int32
+// operations for (p-5)/8 in the yardstick of 55 a squaring and 100 a
+// multiply), against 160 bytes of memory a lane.  The design:
+//   - the field of fe25519_r32.cuh: eight uint32 limbs, products in PTX
+//     carry chains (36 products a squaring, 64 a multiply, where the
+//     radix-2^25.5 field took 55 and 100 wide ones and a carry pass);
+//   - rows read and written in place ([B, 20], a lane's 80 bytes
+//     contiguous), no transposing copies around the launch;
+//   - the running power and the chain's few temporaries stay in
+//     registers; CTAs of 64 threads (64, 128 and 256 timed within 0.7% of
+//     one another on an H100, PERF.md §6; 64 leaves the smallest last
+//     wave).
 
-#include "fe25519.cuh"
+#include "fe25519_r32.cuh"
 
 namespace ag {
 
-AG_DEV void pow_lane(const int32_t* x, const int32_t* bits, int n_bits,
-                     int32_t* out, int64_t B, int64_t lane) {
-  fe xv, r;
-  fe_from_limbs13_weak(xv, x, B, lane);
-  fe_one(r);
-  AG_NOUNROLL for (int i = 0; i < n_bits; ++i) {
-    fe_sq(r, r);
-    if (bits[i]) fe_mul(r, r, xv);
+constexpr int kChainWindow = 0, kChainP58 = 1, kChainInvert = 2;
+
+// x^e by fixed 4-bit windows over e's digits (most significant first).
+AG_DEV void fe_pow_window(r32::fe& r, const r32::fe& x, const int32_t* digits,
+                          int n_digits) {
+  using namespace r32;
+  fe tab[16];
+  fe_one(tab[0]);
+  tab[1] = x;
+  AG_UNROLL for (int i = 2; i < 16; ++i) {
+    if (i & 1) fe_mul(tab[i], tab[i - 1], x);
+    else fe_sq(tab[i], tab[i / 2]);
   }
-  fe_store_limbs13(r, out, B, lane);
+  r = tab[digits[0]];
+  AG_NOUNROLL for (int i = 1; i < n_digits; ++i) {
+    fe_sqn(r, r, 4);
+    const int d = digits[i];
+    if (d) fe_mul(r, r, tab[d]);
+  }
+}
+
+// One lane: x and out point at its row of 20 limbs.
+template <int CHAIN>
+AG_DEV void pow_lane(const int32_t* x, int32_t* out, const int32_t* digits,
+                     int n_digits) {
+  using namespace r32;
+  fe xv, r;
+  fe_load13_weak(xv, x);
+  if (CHAIN == kChainP58) fe_pow22523(r, xv);
+  else if (CHAIN == kChainInvert) fe_invert(r, xv);
+  else fe_pow_window(r, xv, digits, n_digits);
+  fe_store13(r, out);
 }
 
 }  // namespace ag
 
 #if defined(__CUDACC__)
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
 
+template <int CHAIN>
 __global__ void __launch_bounds__(kThreads)
-fe_pow_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ bits,
-              int n_bits, int32_t* __restrict__ out, int64_t B) {
+fe_pow_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+              int64_t B, const int32_t* __restrict__ digits, int n_digits) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  ag::pow_lane(x, bits, n_bits, out, B, lane);
+  ag::pow_lane<CHAIN>(x + 20 * lane, out + 20 * lane, digits, n_digits);
 }
 
-// Plain C entry point (loaded with ctypes).  Launches on `stream`, does
-// not synchronize, returns cudaGetLastError() of the launch.
-extern "C" int ag_fe_pow(const int32_t* x, const int32_t* bits, int n_bits,
-                         int32_t* out, int64_t B, void* stream) {
+// Plain C entry point (loaded with ctypes).  Launches on `stream`, does not
+// synchronize, returns cudaGetLastError() of the launch
+// (cudaErrorInvalidValue for an unknown chain).
+extern "C" int ag_fe_pow(const int32_t* x, int32_t* out, int64_t B, int chain,
+                         const int32_t* digits, int n_digits, void* stream) {
   if (B <= 0) return 0;
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  fe_pow_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      x, bits, n_bits, out, B);
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (chain) {
+    case ag::kChainP58:
+      fe_pow_kernel<ag::kChainP58><<<blocks, kThreads, 0, st>>>(
+          x, out, B, digits, n_digits);
+      break;
+    case ag::kChainInvert:
+      fe_pow_kernel<ag::kChainInvert><<<blocks, kThreads, 0, st>>>(
+          x, out, B, digits, n_digits);
+      break;
+    case ag::kChainWindow:
+      fe_pow_kernel<ag::kChainWindow><<<blocks, kThreads, 0, st>>>(
+          x, out, B, digits, n_digits);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

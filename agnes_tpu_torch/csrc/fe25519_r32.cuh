@@ -1,10 +1,14 @@
 // GF(2^255 - 19) and edwards25519 arithmetic in radix 2^32, one lane per
-// thread, for the fused verify kernel (ed25519_verify.cu) only.
+// thread, for the port's Ed25519 kernels: the fused verify
+// (ed25519_verify.cu), the batched power (ed25519_pow.cu) and [s]B - [k]A
+// (ed25519_straus.cu).
 //
-// Replaces, for that kernel, the radix-2^25.5 field of fe25519.cuh (which
-// the pow and Straus kernels keep).  Both serve the TPU kernel
-// agnes_tpu/crypto/pallas_verify.py::_verify_kernel (line 409), whose
-// field is 20 signed 13-bit limbs; the boundary converts.
+// Replaces the radix-2^25.5 field of fe25519.cuh, which only the
+// measurement kernels of scripts/verify_probe.cu still use.  The TPU
+// kernels these serve (agnes_tpu/crypto/pallas_verify.py::_verify_kernel,
+// line 409; pallas_ed25519.py::_pow_kernel, line 169, and _straus_kernel,
+// line 146) compute on 20 signed 13-bit limbs; the boundary converts
+// (fe_from_limbs13, fe_load13_weak, fe_store13).
 //
 // What bounds the verify kernel on this card is its integer instruction
 // issue: a lane does 1,757 multiplies and 1,574 squarings and touches 588
@@ -27,9 +31,10 @@
 //     squares: 36 products;
 //   - add and subtract: one 8-word carry (borrow) chain and a fold of
 //     the carry (borrow) by 38, no carry pass;
-//   - freeze to [0, p) only where a value is compared: the two is_zero
-//     tests of decompress, the parity against the sign bit, and the final
-//     projective equality.
+//   - freeze to [0, p) only where a value is compared (the two is_zero
+//     tests of decompress, the parity against the sign bit, the verify's
+//     final projective equality) or stored (fe_store13: the pow and
+//     Straus kernels' outputs).
 //
 // Outside __CUDA_ARCH__ only the carry-chain primitives differ: each PTX
 // instruction is emulated in C++ with its carry flag, so a host compiler
@@ -357,6 +362,83 @@ AG_DEV void fe_pow22523(fe& out, const fe& z) {
   fe_mul(t0, t1, t0);           // 2^250 - 1
   fe_sqn(t0, t0, 2);            // 2^252 - 4
   fe_mul(out, t0, z);           // 2^252 - 3
+}
+
+// z^(p-2) = z^(2^255 - 21) = 1/z (0 for z = 0): 254 squarings + 11
+// multiplies, ref10's invert.  The same blocks as fe_pow22523 up to
+// z^(2^250 - 1), then 5 squarings and z^11.
+AG_DEV void fe_invert(fe& out, const fe& z) {
+  fe z2, z9, z11, t0, t1, t2;
+  fe_sq(z2, z);                 // 2
+  fe_sqn(t0, z2, 2);            // 8
+  fe_mul(z9, z, t0);            // 9
+  fe_mul(z11, z2, z9);          // 11
+  fe_sq(t0, z11);               // 22
+  fe_mul(t0, z9, t0);           // 31 = 2^5 - 1
+  fe_sqn(t1, t0, 5);
+  fe_mul(t0, t1, t0);           // 2^10 - 1
+  fe_sqn(t1, t0, 10);
+  fe_mul(t1, t1, t0);           // 2^20 - 1
+  fe_sqn(t2, t1, 20);
+  fe_mul(t1, t2, t1);           // 2^40 - 1
+  fe_sqn(t1, t1, 10);
+  fe_mul(t0, t1, t0);           // 2^50 - 1
+  fe_sqn(t1, t0, 50);
+  fe_mul(t1, t1, t0);           // 2^100 - 1
+  fe_sqn(t2, t1, 100);
+  fe_mul(t1, t2, t1);           // 2^200 - 1
+  fe_sqn(t1, t1, 50);
+  fe_mul(t0, t1, t0);           // 2^250 - 1
+  fe_sqn(t0, t0, 5);            // 2^255 - 32
+  fe_mul(out, t0, z11);         // 2^255 - 21
+}
+
+// One lane's 20 signed radix-2^13 limbs, contiguous (|limb| < 2^20; weak,
+// unfrozen, possibly >= p or negative) -> a weakly reduced element of the
+// same value mod p.  Each limb is summed into the 32-bit word its low bit
+// falls in, in int64 (at most 3 limbs a word, each below 2^51 there); a
+// signed carry pass leaves words in [0, 2^32) and the part above 2^256
+// (|hi| < 2^12) in t[8], folded by 38 (2^256 = 38 mod p); a second pass
+// leaves a carry c in {-1, 0, 1} out of word 7.  Then c = 1 means the
+// words are below 2^19 and c = -1 that they are above 2^256 - 2^19, so
+// adding 38 c to word 0 carries or borrows no further.  Multiplication
+// instead of a left shift keeps negative limbs well defined; the right
+// shifts of negative values are arithmetic (floor), as C++20 defines them.
+AG_DEV void fe_load13_weak(fe& h, const int32_t* a) {
+  int64_t t[9];
+  AG_UNROLL for (int j = 0; j < 9; ++j) t[j] = 0;
+  AG_UNROLL for (int k = 0; k < 20; ++k) {
+    const int bit = 13 * k;
+    t[bit >> 5] += (int64_t)a[k] * ((int64_t)1 << (bit & 31));
+  }
+  AG_UNROLL for (int j = 0; j < 8; ++j) {
+    const int64_t c = t[j] >> 32;
+    t[j] -= c * ((int64_t)1 << 32);
+    t[j + 1] += c;
+  }
+  t[0] += 38 * t[8];
+  AG_UNROLL for (int j = 0; j < 7; ++j) {
+    const int64_t c = t[j] >> 32;
+    t[j] -= c * ((int64_t)1 << 32);
+    t[j + 1] += c;
+  }
+  const int64_t c = t[7] >> 32;
+  t[7] -= c * ((int64_t)1 << 32);
+  t[0] += 38 * c;
+  AG_UNROLL for (int j = 0; j < 8; ++j) h.v[j] = (uint32_t)t[j];
+}
+
+// The canonical value of f (in [0, p)) as one lane's 20 strict radix-2^13
+// limbs, contiguous.
+AG_DEV void fe_store13(const fe& f, int32_t* out) {
+  fe h;
+  fe_freeze(h, f);
+  AG_UNROLL for (int k = 0; k < 20; ++k) {
+    const int bit = 13 * k, j = bit >> 5, off = bit & 31;
+    uint32_t v = h.v[j] >> off;
+    if (off > 19 && j < 7) v |= h.v[j + 1] << (32 - off);
+    out[k] = (int32_t)(v & 0x1FFFu);
+  }
 }
 
 // y from 20 strict 13-bit limbs at stride B -> radix-2^32 limbs (bit 255,

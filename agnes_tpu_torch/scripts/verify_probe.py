@@ -119,6 +119,30 @@ def variants(parent: Path | None, out_dir: Path = OUT):
     return out
 
 
+def build_chains(out_dir: Path = OUT) -> Path:
+    """Build `verify_probe.cu` alone (the chain kernels of item 2); the
+    path of its library."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "probe.so"
+    _nvcc(HERE / "verify_probe.cu", so, cuda_build.CSRC)
+    return so
+
+
+def chain_latency_ns(so: Path, op: str = "r32_mul", n: int = 8192) -> float:
+    """Dependent latency of one field operation in ns: item 2's chain
+    kernel `p_<op>` on one warp (one CTA of 32 threads, n dependent
+    operations a thread), so no other warp hides an operation's latency.
+    The latency floor of a kernel whose lane is one dependent chain."""
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, f"p_{op}")
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3
+    buf = torch.empty(32, dtype=torch.int32, device="cuda")
+    if fn(buf.data_ptr(), 16, 1, 32):
+        raise RuntimeError(f"p_{op}: launch failed")
+    ms = cuda_ms(lambda: fn(buf.data_ptr(), n, 1, 32), 3)
+    return ms * 1e6 / n
+
+
 def sass_hist(so: Path):
     """Mangled kernel name -> {opcode: static count} (cuobjdump -sass)."""
     tool = Path(cuda_build._nvcc()).with_name("cuobjdump")

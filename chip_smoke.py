@@ -7,16 +7,26 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
 
   1. prints the card and its power limit; builds every CUDA kernel from
      `agnes_tpu_torch/csrc/` with nvcc (one process per source, started
-     together) and prints the build time and `ptxas` registers/spills
-     (each kernel's line of the JSON output carries its `registers`,
-     `stack_bytes` and `spill_bytes`);
+     together, beside them the chain kernels of
+     `agnes_tpu_torch/scripts/verify_probe.cu` for a latency floor) and
+     prints the build time and `ptxas` registers/spills (each kernel's
+     line of the JSON output carries its `registers`, `stack_bytes` and
+     `spill_bytes`);
   2. holds the Ed25519 verify kernel (window 5) against its plain
      PyTorch version on the card, lane for lane: the adversarial grid and
      the torsioned case (both also against the RFC 8032 oracle
      `ed25519_ref.verify`) plus 4,096 random honest and forged lanes;
   2b. holds the other kernels against their plain versions on the card:
-     the pow kernel on 4,096 random weak lanes plus edge values at
-     e = (p-5)/8 and p-2, the Straus kernel on 4,096 lanes, and the
+     the pow kernel limb for limb on 4,096 random weak lanes plus edge
+     values at e = (p-5)/8 and p-2 (its two addition chains) and 65,537
+     (its fixed windows); the Straus
+     kernel on 4,197 lanes (the edge scalars s = 0, 1, L-1, 2^260-1
+     against k = 0, 1, 2^260-1, A with an order-4 component, warps that
+     mix k = 0 and k != 0, a warp of all k = 0, then random scalars
+     below L and A from the fixture's keys), by group equality with the plain
+     version (`point_equal`) and X Y = Z T, and on a sample by the RFC
+     8032 oracle's encoding of [s]B - [k]A (the kernel's projective
+     representative differs from the plain version's by design); and the
      window-4 verify kernel on the grid plus 4,096 random lanes (the grid
      also against the oracle); `verify_batch(window=4)`, the window-4
      kernel's public entry, is driven once with its launch count;
@@ -28,8 +38,11 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      rows; after
      phase 6 also at every row count the lane launched them with
      (`BlsFp`).  With `--parent-csrc DIR` (the `csrc/` of an earlier
-     checkout) each shape also times that checkout's kernels, which
-     must give the same limbs;
+     checkout) each shape also times that checkout's kernels where its
+     `bls_fp.cu` differs from this tree's (the limbs-first design of
+     `bls_fp_probe.ParentKernels`), which must give the same limbs.  An
+     earlier checkout's pow and Straus kernels are timed by running that
+     checkout's own `chip_smoke.py` in the same chip call;
   2d. runs the layout microbenchmark's own path
      (`agnes_tpu_torch.scripts.microbench_layout.main`: its six rows at
      T = 16,384 lanes, N_CHAIN 64 and 128, the fe13_chain kernel timed
@@ -61,10 +74,13 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      classes: exactly 2 x I rejected, value 7 decided, and the verify
      kernel reached through bisection.  Last, each kernel is timed next
      to its plain version and its bound at the lane counts of this phase
-     (pow also at 2,048,000 lanes; Straus at B = 1 on the path's own
-    [c]B inputs, and at 128,000 random lanes, a shape no caller has yet).
-    A bound counts the least work of the kernel's function on the timed
-    inputs; the kernel's own operation count is printed beside it;
+     (pow also at 2,048,000 lanes;
+     Straus at B = 1 on the path's own [c]B inputs, with its latency
+     floor (the comb's dependent chain of multiplies times one radix-2^32
+     multiply's dependent latency, `verify_probe.chain_latency_ns`), and
+     at 128,000 random lanes, a shape no caller has yet).  A bound counts the least work of the
+     kernel's function on the timed inputs; the kernel's own operation
+     count is printed beside it;
   6. the BLS aggregate lane at full validator width: I = 4 x V = 1,000
      with 24-bit stake, 8 classes and 8,000 shares through
      BlsLane.table.fold -> poll -> clear_classes (the MSMs and two
@@ -183,12 +199,31 @@ def compare(got, want) -> tuple:
     return int((bad > 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+def straus_check(E, F, got, want) -> tuple:
+    """(lane checks failed, max |byte difference| of the encodings): got
+    must equal want as a group element (`point_equal`, the projective
+    representatives differ by design) and satisfy X Y = Z T."""
+    eq = E.point_equal(got, want)
+    xy = F.eq_mod_p(F.mul(got.x, got.y), F.mul(got.z, got.t))
+    m, err = compare(E.compress(got), E.compress(want))
+    return int((~eq).sum()) + int((~xy).sum()) + m, err
+
+
+def straus_oracle(ref, s: int, k: int, a) -> bytes:
+    """The RFC 8032 oracle's encoding of [s]B - [k]A (k not reduced: A
+    may carry torsion)."""
+    ka = ref._mul(k, a)
+    neg = (-ka[0] % ref.P, ka[1], ka[2], -ka[3] % ref.P)
+    return ref._compress(ref._add(ref._mul(s, ref.BASE), neg))
+
+
 class Bound:
     """The least time the card could take for a kernel's work: the
     larger of its int32 operations over the int32 rate (SMs x 64 lanes
     x max SM clock) and its bytes over the memory rate."""
 
     def __init__(self, n_sms: int, sm_clock_mhz: float):
+        self.n_sms = n_sms
         self.rate = n_sms * 64 * sm_clock_mhz * 1e6
         self.desc = f"{n_sms} SMs x 64 x {sm_clock_mhz:.0f} MHz"
 
@@ -620,12 +655,19 @@ def chain_phase(bound) -> dict:
         mism, err = mism + m, max(err, e)
         b_ms, b_by = bound(MB.least_products(r["lanes"], n),
                            MB.least_bytes(r["lanes"]))
-        r.update(plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, mismatches=m)
+        # the row's CTAs reach at most that many SMs: its layout's bound
+        ctas = -(-r["lanes"] // r["block_lanes"])
+        b_ctas = b_ms * bound.n_sms / min(ctas, bound.n_sms)
+        r.update(plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, mismatches=m,
+                 ctas=ctas, bound_ms_at_ctas=b_ctas)
         log(f"[chain] {label}: kernel {r['ms']:.4f} ms, plain {p_ms:.3f} ms,"
             f" bound {b_ms:.4f} ms ({b_by}; {MB.PRODUCTS_PER_FE_MUL} IMADs "
             f"a multiply, the kernel's own count the same, at "
             f"{bound.desc}), kernel at {100 * b_ms / r['ms']:.3g}% of the "
-            f"bound; {m} of {r['lanes']} lanes differ from plain")
+            f"bound; on the {min(ctas, bound.n_sms)} SMs its {ctas} CTAs "
+            f"reach {b_ctas:.4f} ms, kernel at "
+            f"{100 * b_ctas / r['ms']:.3g}% of that; {m} of {r['lanes']} "
+            f"lanes differ from plain")
     rng = np.random.RandomState(SEED + 2)
     wraps = [MB.wrap_inputs((MB.NLIMBS, MB.T_LANES), SEED + 1),
              tuple(rng.randint(-2**31, 2**31, (MB.NLIMBS, MB.T_LANES),
@@ -651,8 +693,10 @@ def chain_phase(bound) -> dict:
         "library_ms": None, "lanes": head["lanes"],
         "n_chain": head["n_chain"],
         "products_per_fe_mul": MB.PRODUCTS_PER_FE_MUL,
+        "bound_ms_at_ctas": head["bound_ms_at_ctas"],
         "rows": [{k: r[k] for k in ("label", "block_lanes", "n_chain", "ms",
-                                    "plain_ms", "bound_ms")}
+                                    "plain_ms", "bound_ms", "ctas",
+                                    "bound_ms_at_ctas")}
                  for r in rows]}
 
 
@@ -810,8 +854,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent-csrc", default=None,
-                    help="csrc/ of an earlier checkout: phase 2c also times "
-                         "its bls_fp kernels beside this one's")
+                    help="csrc/ of an earlier checkout: phase 2c also "
+                         "runs its bls_fp kernels beside this one's")
     parent_csrc = ap.parse_args(argv).parent_csrc
     try:
         import numpy as np
@@ -837,6 +881,7 @@ def main(argv=None) -> int:
         from agnes_tpu_torch.harness.device_driver import DeviceDriver
         from agnes_tpu_torch.scripts import bls_fp_probe
         from agnes_tpu_torch.scripts import microbench_layout as MB
+        from agnes_tpu_torch.scripts import verify_probe
         from agnes_tpu_torch.types import VoteType
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -856,24 +901,30 @@ def main(argv=None) -> int:
     kernels = [V.KERNEL, F.POW_KERNEL, E.STRAUS_KERNEL, BF.FP_KERNEL,
                MB.KERNEL]
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(3)
+    probe_job = pool.submit(verify_probe.build_chains)
     if parent_csrc is not None:
         def build_parent():
+            par = (Path(parent_csrc) / "bls_fp.cu").read_bytes()
+            if par == (cuda_build.CSRC / "bls_fp.cu").read_bytes():
+                log("[build] parent bls_fp.cu is this tree's: phase 2c "
+                    "times it once")
+                return None
             d = cuda_build.BUILD / "parent"
             d.mkdir(parents=True, exist_ok=True)
             src = d / "bls_fp.cu"
-            src.write_bytes((Path(parent_csrc) / "bls_fp.cu").read_bytes())
+            src.write_bytes(par)
             usage, secs = bls_fp_probe.nvcc(src, src.with_suffix(".so"))
             log(f"[build] parent bls_fp: nvcc {secs:.1f} s; {usage}")
             return bls_fp_probe.ParentKernels(src.with_suffix(".so"))
         parent_job = pool.submit(build_parent)
     cuda_build.build_all(kernels)
+    probe_so = probe_job.result()
     if parent_csrc is not None:
         parent_job.result()
     pool.shutdown()
-    log(f"[build] {len(kernels)} sources in parallel"
-        + (" (and the parent's bls_fp)" if parent_csrc else "")
-        + f": {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(kernels)} sources in parallel, with the chain probe"
+        + (" (and the parent's bls_fp)" if parent_csrc else "") + f": {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         log(f"[build] {name}: nvcc {cuda_build.build_seconds[name]:.1f} s")
         for line in cuda_build.ptxas_report(name):
@@ -960,34 +1011,65 @@ def main(argv=None) -> int:
     xs[len(edges)] = -8800
     x_pow = torch.from_numpy(xs).to(dev)
     mism_pow = err_pow = 0
-    for e in ((P - 5) // 8, P - 2):
-        m, er = compare(F.pow_p(x_pow, e), F.freeze(F.pow_plain(x_pow, e)))
+    for e in ((P - 5) // 8, P - 2, 65537):
+        want_pow = F.freeze(F.pow_plain(x_pow, e))
+        m, er = compare(F.pow_p(x_pow, e), want_pow)
         mism_pow, err_pow = mism_pow + m, max(err_pow, er)
     if mism_pow:
         raise AssertionError(f"pow kernel != plain on {mism_pow} lanes")
     log(f"[pow] kernel == plain (frozen) on {N_RANDOM} lanes at e = (p-5)/8 "
-        f"and p-2, edges included")
+        f"and p-2 (chains) and 65537 (windows), edges included")
 
-    # Straus: random scalars < L, A decompressed from the fixture's keys
-    def scalars(n):
-        vals = [int.from_bytes(rng.bytes(32), "little") % ref.L
-                for _ in range(n)]
+    # Straus: the edge lanes, then random scalars < L with A decompressed
+    # from the fixture's keys; 4,197 lanes, not a multiple of 32
+    def limbs13(vals):
         return torch.tensor([[(v >> (13 * i)) & 0x1FFF for i in range(20)]
                              for v in vals], dtype=torch.int32, device=dev)
 
-    s_st, k_st = scalars(N_RANDOM), scalars(N_RANDOM)
+    def scalars(n):
+        return limbs13([int.from_bytes(rng.bytes(32), "little") % ref.L
+                        for _ in range(n)])
+
+    n_st = 96 + N_RANDOM + 5
+    sv = [int.from_bytes(rng.bytes(32), "little") % ref.L
+          for _ in range(n_st)]
+    kv = [int.from_bytes(rng.bytes(32), "little") % ref.L
+          for _ in range(n_st)]
+    for i, (a, b) in enumerate([(a, b) for a in (0, 1, ref.L - 1,
+                                                 2**260 - 1)
+                                for b in (0, 1, 2**260 - 1)]):
+        sv[i], kv[i] = a, b                   # lanes 0-11: the edges
+    tors = list(range(12, 16))                # A with an order-4 part
+    for i in list(range(16, 32, 2)) + list(range(64, 96, 3)):
+        kv[i] = 0                             # warps 0, 2: k = 0 mixed in
+    for i in range(32, 64):
+        kv[i] = 0                             # warp 1: all k = 0
+    key_idx = rng.randint(V_SIGNED, size=n_st)
+    a_ref = [ref._decompress(bytes(pubkeys[j])) for j in key_idx]
+    tau = ref._decompress(bytes(32))          # y = 0: order 4
+    for i in tors:
+        a_ref[i] = ref._add(a_ref[i], tau)
     a_st, _ = E.decompress(torch.from_numpy(
-        pubkeys[rng.randint(V_SIGNED, size=N_RANDOM)].astype(np.int32)).to(dev))
-    q_k = E.straus_sub(s_st, k_st, a_st)
+        pubkeys[key_idx].astype(np.int32)).to(dev))
+    ti = torch.tensor(tors, device=dev)
+    a_st = E.Point(*(c.index_put((ti,), limbs13([a_ref[i][j] % P
+                                                 for i in tors]))
+                     for j, c in enumerate(a_st)))
+    s_st, k_st = limbs13(sv), limbs13(kv)
     q_p = E.straus_plain(s_st, k_st, a_st)
-    mism_st = err_st = 0
-    for ck, cp in zip(q_k, q_p):
-        m, er = compare(ck, F.freeze(cp))
-        mism_st, err_st = max(mism_st, m), max(err_st, er)
-    if mism_st:
-        raise AssertionError(f"straus kernel != plain on {mism_st} lanes")
-    log(f"[straus] kernel == plain (frozen coordinates) on {N_RANDOM} lanes")
-    del q_k, q_p, a_st
+    q_k = E.straus_sub(s_st, k_st, a_st)
+    mism_st, err_st = straus_check(E, F, q_k, q_p)
+    enc = E.compress(q_k).cpu().numpy()
+    sample = list(range(96)) + list(range(96, n_st, 97))
+    oracle_bad = [i for i in sample if bytes(enc[i].astype(np.uint8))
+                  != straus_oracle(ref, sv[i], kv[i], a_ref[i])]
+    if mism_st or oracle_bad:
+        raise AssertionError(f"straus kernel != plain on {mism_st} lane "
+                             f"checks; != the oracle on lanes {oracle_bad}")
+    log(f"[straus] kernel == plain as group elements, X Y = Z T, on {n_st} "
+        f"lanes (edge scalars, torsioned A, mixed and all-zero k warps); "
+        f"== the RFC 8032 oracle's encoding on {len(sample)} lanes")
+    del q_p, q_k, a_st, s_st, k_st
 
     # -- phase 2c: the BLS12-381 field kernels vs plain on the card -------
     bls_fp = BlsFp(rng, bound)
@@ -1192,91 +1274,121 @@ def main(argv=None) -> int:
 
     # each kernel next to its plain version and its bound.  A bound counts
     # the least work of the kernel's function on this run's inputs (the
-    # shortest known chain for pow, a joint double-and-add over the bits
-    # the scalars have for Straus); the kernel's own count stands beside
-    # it.
+    # shortest known chain for pow; for Straus, per lane the less of a
+    # joint double-and-add and the kernel's comb and windows on these
+    # scalars); the kernel's own count stands beside it.
     e58 = (P - 5) // 8
+    dms = bls_fp_probe.device_ms
 
     def time_pow(lanes_n):
+        """The kernel by device time, limb for limb against the frozen
+        plain power."""
         x = torch.from_numpy(rng.randint(0, 8192, (lanes_n, 20))
                              .astype(np.int32)).to(dev)
-        F.pow_p(x, e58)                                # warm
-        k_ms = cuda_ms(lambda: F.pow_p(x, e58), KERNEL_REPS)
         plain = {}
         p_ms = cuda_ms(lambda: plain.setdefault(
             "y", F.freeze(F.pow_plain(x, e58))), 1)
+        r = {"plain_ms": p_ms}
+        F.pow_p(x, e58)                                # warm
+        r["ms"] = dms(lambda: F.pow_p(x, e58), KERNEL_REPS)
         m, er = compare(F.pow_p(x, e58), plain["y"])
-        b_ms, b_by = bound(F.pow_least_int32_ops(e58) * lanes_n,
-                           160 * lanes_n + 4 * e58.bit_length())
-        return k_ms, p_ms, b_ms, b_by, m, er
+        r["bound_ms"], r["bound_by"] = bound(
+            F.pow_least_int32_ops(e58) * lanes_n,
+            160 * lanes_n + 4 * e58.bit_length())
+        r["mismatches"], r["max_abs_err"] = m, er
+        return r
 
+    n_big = 2 * I_SIGNED * V_SIGNED
     pow_n = time_pow(n_msm)               # each decompress: every lane
-    pow_big = time_pow(2 * I_SIGNED * V_SIGNED)
-    if pow_n[4] or pow_big[4]:
+    pow_big = time_pow(n_big)
+    if pow_n["mismatches"] or pow_big["mismatches"]:
         raise AssertionError("pow kernel != plain at the timing shapes")
-    for n, r in ((n_msm, pow_n), (2 * I_SIGNED * V_SIGNED, pow_big)):
-        log(f"[pow] B={n} e=(p-5)/8: kernel {r[0]:.3f} ms, plain "
-            f"{r[1]:.3f} ms, bound {r[2]:.3f} ms ({r[3]}; least "
-            f"{F.pow_least_int32_ops(e58)} int32 ops/lane, the kernel's "
-            f"loop {F.pow_int32_ops(e58)}, at {bound.desc}), kernel at "
-            f"{100 * r[2] / r[0]:.3g}% of the bound")
+    for n, r in ((n_msm, pow_n), (n_big, pow_big)):
+        log(f"[pow] B={n} e=(p-5)/8: kernel {r['ms']:.4f} ms"
+            f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {F.pow_least_int32_ops(e58)} int32 ops/lane, "
+            f"the kernel's chain {F.pow_int32_ops(e58)}, at {bound.desc}), "
+            f"kernel at {100 * r['bound_ms'] / r['ms']:.3g}% of the bound")
     rows["fe25519_pow"] = {
         "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_pow.cu",
         "replaces": "agnes_tpu/crypto/pallas_ed25519.py:169",
-        "launches": n5["pow"], "max_abs_err": max(err_pow, pow_n[5]),
-        "mismatches": mism_pow + pow_n[4], "ms": pow_n[0],
-        "plain_ms": pow_n[1], "bound_ms": pow_n[2], "bound_by": pow_n[3],
+        "launches": n5["pow"],
+        "max_abs_err": max(err_pow, pow_n["max_abs_err"],
+                           pow_big["max_abs_err"]),
+        "mismatches": mism_pow + pow_n["mismatches"] + pow_big["mismatches"],
+        "ms": pow_n["ms"], "plain_ms": pow_n["plain_ms"],
+        "bound_ms": pow_n["bound_ms"], "bound_by": pow_n["bound_by"],
         "library_ms": None, "lanes": n_msm,
         "least_int32_ops_per_lane": F.pow_least_int32_ops(e58),
         "kernel_int32_ops_per_lane": F.pow_int32_ops(e58),
-        f"ms_{2 * I_SIGNED * V_SIGNED}": pow_big[0],
-        f"plain_ms_{2 * I_SIGNED * V_SIGNED}": pow_big[1],
-        f"bound_ms_{2 * I_SIGNED * V_SIGNED}": pow_big[2]}
+        f"ms_{n_big}": pow_big["ms"], f"plain_ms_{n_big}": pow_big["plain_ms"],
+        f"bound_ms_{n_big}": pow_big["bound_ms"]}
 
-    def time_straus(s, k, a):
+    def time_straus(s, k, a, reps):
+        """The kernel by device time, against the plain version as a group
+        element."""
         lanes_n = s.shape[0]
-        E.straus_sub(s, k, a)                          # warm
-        k_ms = cuda_ms(lambda: E.straus_sub(s, k, a), KERNEL_REPS)
         plain = {}
         p_ms = cuda_ms(lambda: plain.setdefault(
             "q", E.straus_plain(s, k, a)), 1)
-        m = er = 0
-        for ck, cp in zip(E.straus_sub(s, k, a), plain["q"]):
-            mi, ei = compare(ck, F.freeze(cp))
-            m, er = max(m, mi), max(er, ei)
+        r = {"plain_ms": p_ms}
+        E.straus_sub(s, k, a)                          # warm
+        r["ms"] = dms(lambda: E.straus_sub(s, k, a), reps)
+        m, er = straus_check(E, F, E.straus_sub(s, k, a), plain["q"])
         least = E.straus_least_int32_ops(s, k)
-        b_ms, b_by = bound(least, E.STRAUS_BYTES_PER_LANE * lanes_n)
-        return k_ms, p_ms, b_ms, b_by, m, er, least / lanes_n
+        r["bound_ms"], r["bound_by"] = bound(
+            least, E.STRAUS_BYTES_PER_LANE * lanes_n)
+        r["least_per_lane"] = least / lanes_n
+        r["mismatches"], r["max_abs_err"] = m, er
+        return r
 
     # [c]B as the MSM path runs it (scalar_mul_base: B = 1, k = 0, A the
-    # identity), then a standalone shape no caller has yet: 128,000 lanes
-    # of random s, k < L and A from the fixture's keys
+    # identity), with its latency floor, then a standalone shape no caller
+    # has yet: 128,000 lanes of random s, k < L and A from the fixture's
+    # keys
     c1 = c5.reshape(1, -1)
-    st_1 = time_straus(c1, torch.zeros_like(c1), E.identity((1,), dev))
+    z1 = torch.zeros_like(c1)
+    st_1 = time_straus(c1, z1, E.identity((1,), dev), 50)
+    mul_ns = verify_probe.chain_latency_ns(probe_so, "r32_mul")
+    chain = E.straus_chain_muls(c1, z1)
+    st_1["latency_floor_ms"] = chain * mul_ns * 1e-6
     s_n, k_n = scalars(n_msm), scalars(n_msm)
     a_n, _ = E.decompress(torch.from_numpy(
         pubkeys[rng.randint(V_SIGNED, size=n_msm)].astype(np.int32)).to(dev))
-    st_n = time_straus(s_n, k_n, a_n)
+    st_n = time_straus(s_n, k_n, a_n, KERNEL_REPS)
     del s_n, k_n, a_n
-    if st_1[4] or st_n[4]:
+    if st_1["mismatches"] or st_n["mismatches"]:
         raise AssertionError("straus kernel != plain at the timing shapes")
     for n, r in ((1, st_1), (n_msm, st_n)):
-        log(f"[straus] B={n}: kernel {r[0]:.3f} ms, plain {r[1]:.3f} ms, "
-            f"bound {r[2]:.6f} ms ({r[3]}; least {r[6]:.0f} int32 ops/lane "
-            f"on these scalars, the kernel's loop "
-            f"{E.STRAUS_INT32_OPS_PER_LANE}, at {bound.desc}), kernel at "
-            f"{100 * r[2] / r[0]:.3g}% of the bound")
+        log(f"[straus] B={n}: kernel {r['ms']:.4f} ms"
+            f", plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}; least {r['least_per_lane']:.0f} int32 "
+            f"ops/lane on these scalars, the kernel's "
+            f"{E.STRAUS_INT32_OPS_PER_LANE} walking -[k]A, "
+            f"{E.STRAUS_COMB_INT32_OPS_PER_LANE} where its warp's k are 0, "
+            f"at {bound.desc}), kernel at "
+            f"{100 * r['bound_ms'] / r['ms']:.3g}% of the bound"
+            + (f"; latency floor {r['latency_floor_ms']:.4f} ms ({chain} "
+               f"dependent multiplies x {mul_ns:.2f} ns, one radix-2^32 "
+               f"multiply's dependent latency on one warp), kernel at "
+               f"{r['ms'] / r['latency_floor_ms']:.3g}x the floor"
+               if n == 1 else ""))
     rows["ed25519_straus"] = {
         "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_straus.cu",
         "replaces": "agnes_tpu/crypto/pallas_ed25519.py:146",
-        "launches": n5["straus"], "max_abs_err": max(err_st, st_1[5], st_n[5]),
-        "mismatches": mism_st + st_1[4] + st_n[4], "ms": st_1[0],
-        "plain_ms": st_1[1], "bound_ms": st_1[2], "bound_by": st_1[3],
+        "launches": n5["straus"],
+        "max_abs_err": max(err_st, st_1["max_abs_err"], st_n["max_abs_err"]),
+        "mismatches": mism_st + st_1["mismatches"] + st_n["mismatches"],
+        "ms": st_1["ms"], "plain_ms": st_1["plain_ms"],
+        "bound_ms": st_1["bound_ms"], "bound_by": st_1["bound_by"],
         "library_ms": None, "lanes": 1,
-        "least_int32_ops_per_lane": st_1[6],
+        "latency_floor_ms": st_1["latency_floor_ms"],
+        "chain_multiplies": chain, "mul_latency_ns": mul_ns,
+        "least_int32_ops_per_lane": st_1["least_per_lane"],
         "kernel_int32_ops_per_lane": E.STRAUS_INT32_OPS_PER_LANE,
-        f"ms_{n_msm}": st_n[0], f"plain_ms_{n_msm}": st_n[1],
-        f"bound_ms_{n_msm}": st_n[2]}
+        "kernel_int32_ops_per_lane_k0_warp": E.STRAUS_COMB_INT32_OPS_PER_LANE,
+        f"ms_{n_msm}": st_n["ms"], f"plain_ms_{n_msm}": st_n["plain_ms"],
+        f"bound_ms_{n_msm}": st_n["bound_ms"]}
 
     args4, _ = V.prologue(pub5, sig5, blk5, window=4)
     V.verify_w4(*args4)                                # warm

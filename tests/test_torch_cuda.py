@@ -85,40 +85,80 @@ def test_signed_height_on_default_device(cuda):
 
 
 def test_pow_kernel_matches_plain(cuda):
+    """Limb for limb with the frozen plain power on each schedule: the
+    chains of (p-5)/8 and p-2 and the fixed windows of 65537."""
     from agnes_tpu_torch.crypto import field as F
 
     rng = np.random.RandomState(4)
     x = rng.randint(-8800, 8801, (300, 20)).astype(np.int32)
     p = 2**255 - 19
     x[0] = [((p + 3) >> (13 * i)) & 0x1FFF for i in range(20)]
+    x[1] = 0
     xt = torch.from_numpy(x).to(cuda)
-    for e in ((p - 5) // 8, p - 2):
+    for e in ((p - 5) // 8, p - 2, 65537):
+        want = F.freeze(F.pow_plain(xt, e)).cpu().numpy()
         n0 = F.POW_LAUNCHES
         got = F.pow_p(xt, e)
         assert F.POW_LAUNCHES == n0 + 1
-        np.testing.assert_array_equal(
-            got.cpu().numpy(), F.freeze(F.pow_plain(xt, e)).cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
-def test_straus_kernel_matches_plain(cuda):
+def _group_equal_and_valid(q, want):
+    """q and want equal as group elements, and q's X Y = Z T."""
     from agnes_tpu_torch.crypto import ed25519_point as E
     from agnes_tpu_torch.crypto import field as F
 
+    assert bool(E.point_equal(q, want).all())
+    assert bool(F.eq_mod_p(F.mul(q.x, q.y), F.mul(q.z, q.t)).all())
+
+
+def test_straus_kernel_matches_plain(cuda):
+    """The kernel's [s]B - [k]A equals the plain version's as a group
+    element (its projective representative differs by design), with
+    X Y = Z T and the RFC 8032 oracle's encoding, at a ragged B of 67
+    lanes: the edge scalars, a torsioned A, warps mixing k = 0 and
+    k != 0, and one warp of all k = 0 (the walk skipped)."""
+    from agnes_tpu_torch.crypto import ed25519_point as E
+
+    L = ref.L
+
+    def limbs(v):
+        return [(v >> (13 * i)) & 0x1FFF for i in range(20)]
+
     rng = np.random.RandomState(5)
-    B = 64
-    s, k = (torch.from_numpy(rng.randint(0, 8192, (B, 20)).astype(np.int32))
-            for _ in range(2))
-    s[:, 19] &= 63
-    k[:, 19] &= 63
-    a, _ = E.decompress(torch.from_numpy(
-        fx.validator_pubkeys(fx.deterministic_seeds(B)).astype(np.int32)))
-    args = [t.to(cuda) for t in (s, k)] + [E.Point(*(c.to(cuda) for c in a))]
+    B = 67
+    sv = [int.from_bytes(rng.bytes(32), "little") % L for _ in range(B)]
+    kv = [int.from_bytes(rng.bytes(33), "little") % 2**260 for _ in range(B)]
+    for i, (a, b) in enumerate([(0, 0), (1, 1), (L - 1, 2**260 - 1),
+                                (2**260 - 1, 0), (2**260 - 1, 2**260 - 1),
+                                (0, 1), (1, 0)]):
+        sv[i], kv[i] = a, b
+    for i in range(8, 32, 3):
+        kv[i] = 0                       # warps mixing k = 0 and k != 0
+    for i in range(32, 64):
+        kv[i] = 0                       # a warp of all k = 0
+    pts = [ref._mul(int.from_bytes(rng.bytes(32), "little") % L, ref.BASE)
+           for _ in range(B)]
+    pts[5] = ref._add(pts[5], ref._decompress(bytes(32)))   # torsion
+    pts[6] = ref.IDENTITY
+    a = E.Point(*(torch.tensor([limbs(pt[c] % (2**255 - 19)) for pt in pts],
+                               dtype=torch.int32, device=cuda)
+                  for c in range(4)))
+    s = torch.tensor([limbs(v) for v in sv], dtype=torch.int32, device=cuda)
+    k = torch.tensor([limbs(v) for v in kv], dtype=torch.int32, device=cuda)
+    want = E.straus_plain(s, k, a)
+    sample = range(0, B, 6)
     n0 = E.STRAUS_LAUNCHES
-    got = E.straus_sub(*args)
+    got = E.straus_sub(s, k, a)
     assert E.STRAUS_LAUNCHES == n0 + 1
-    for g, w in zip(got, E.straus_plain(*args)):
-        np.testing.assert_array_equal(g.cpu().numpy(),
-                                      F.freeze(w).cpu().numpy())
+    assert all(bool(((c >= 0) & (c < 8192)).all()) for c in got)
+    _group_equal_and_valid(got, want)
+    enc = E.compress(got).cpu().numpy()
+    for i in sample:
+        q = ref._add(ref._mul(sv[i], ref.BASE),
+                     ref._mul(kv[i], (-pts[i][0] % ref.P, pts[i][1],
+                                      pts[i][2], -pts[i][3] % ref.P)))
+        assert bytes(enc[i].astype(np.uint8)) == ref._compress(q), i
 
 
 def test_window4_kernel_matches_plain_and_oracle(cuda):

@@ -112,19 +112,79 @@ def test_straus_plain_vs_jax_and_oracle():
         assert bytes(enc[i].astype(np.uint8)) == ref._compress(want)
 
 
+def _signed_digits(v, width, n):
+    """v's signed radix-2^width digits in [-2^(width-1), 2^(width-1)),
+    least significant first, by the carry recoding (Python ints)."""
+    out, half = [], 1 << (width - 1)
+    for _ in range(n):
+        d = v & ((1 << width) - 1)
+        v >>= width
+        if d >= half:
+            d -= 1 << width
+            v += 1
+        out.append(d)
+    assert v == 0
+    return out
+
+
+def _joint_count(s, k):
+    """The joint double-and-add's int32 operations, by hand."""
+    n = max(s.bit_length(), k.bit_length())
+    dbl = max(n - 1, 0)
+    pairs = [(s >> i & 1, k >> i & 1) for i in range(n)]
+    adds = max(sum(1 for p in pairs if p != (0, 0)) - 1, 0)
+    muls = (3 * dbl + 8 * adds + (n > 1) + any(p == (0, 1) for p in pairs)
+            + 9 * any(p == (1, 1) for p in pairs))
+    return 100 * muls + 55 * 4 * dbl
+
+
+def _kernel_count(s, k):
+    """The CUDA kernel's method on this data, by hand: 7 multiplies per
+    comb digit that is not 0, max(5 t, 4) doublings (t: k's top signed
+    5-bit digit), and for k != 0 the table up to the largest |digit| m
+    and an add of 8 per digit past the first."""
+    es = _signed_digits(s, 4, E.COMB_DIGITS)
+    kd = _signed_digits(k, 5, E.K_WINDOWS)
+    nz = [i for i, d in enumerate(kd) if d]
+    dbl = max(5 * nz[-1], 4) if nz else 4
+    muls = 7 * sum(1 for d in es if d) + 3 * dbl
+    if nz:
+        m = max(abs(d) for d in kd)
+        muls += m + 8 * (m - 1) + 8 * (len(nz) - 1)
+    return 100 * muls + 55 * 4 * dbl
+
+
 def test_straus_least_ops_hand_counts():
-    """The Straus kernel's bound counts this data's joint double-and-add:
-    s = 5, k = 0 takes 2 doublings and 1 add (15 multiplies, 8
-    squarings); s = 3, k = 1 takes 1 doubling, 1 add and the B - A entry
-    (21, 4); zero scalars take nothing."""
-    s = torch.tensor([_limbs(5), _limbs(3), _limbs(0)],
-                     dtype=torch.int32)
-    k = torch.tensor([_limbs(0), _limbs(1), _limbs(0)],
-                     dtype=torch.int32)
+    """The Straus kernel's bound is, per lane, the less of the two methods
+    the repo runs, on this data.  s = 5, k = 0: the joint walk takes 2
+    doublings and 1 add (15 multiplies, 8 squarings), the comb 1 add and
+    its 4 doublings (19, 16); s = 3, k = 1: the joint walk 1 doubling, 1
+    add and the B - A entry (21, 4), the kernel 1 comb add, 4 doublings
+    and -A's entry (20, 16); zero scalars take nothing; a random pair
+    below L and a random s with k = 0 (the comb's case) match the hand
+    count; the kernel's own count stays above."""
+    s = torch.tensor([_limbs(5), _limbs(3), _limbs(0)], dtype=torch.int32)
+    k = torch.tensor([_limbs(0), _limbs(1), _limbs(0)], dtype=torch.int32)
+    joint, kernel = E.straus_ops_by_method(s, k)
+    assert joint.tolist() == [100 * 15 + 55 * 8, 100 * 21 + 55 * 4, 0]
+    assert kernel.tolist() == [100 * 19 + 55 * 16, 100 * 20 + 55 * 16,
+                               100 * 12 + 55 * 16]
     assert E.straus_least_int32_ops(s, k) == (
         100 * (15 + 21) + 55 * (8 + 4))
     assert E.straus_least_int32_ops(s[2:], k[2:]) == 0
     rng = np.random.RandomState(5)
+    sv = [int.from_bytes(rng.bytes(32), "little") % L for _ in range(3)]
+    kv = [int.from_bytes(rng.bytes(32), "little") % L, 0, 2**260 - 1]
+    st = torch.tensor([_limbs(v) for v in sv], dtype=torch.int32)
+    kt = torch.tensor([_limbs(v) for v in kv], dtype=torch.int32)
+    joint, kernel = E.straus_ops_by_method(st, kt)
+    assert joint.tolist() == [_joint_count(a, b) for a, b in zip(sv, kv)]
+    assert kernel.tolist() == [_kernel_count(a, b) for a, b in zip(sv, kv)]
+    assert kernel[1] < joint[1]               # k = 0: the comb wins
+    assert E.straus_least_int32_ops(st, kt) == sum(
+        min(_joint_count(a, b), _kernel_count(a, b)) for a, b in zip(sv, kv))
+    assert kernel.max() < E.STRAUS_INT32_OPS_PER_LANE
+    assert kernel[1] < E.STRAUS_COMB_INT32_OPS_PER_LANE
     big = torch.tensor([_limbs(int(rng.randint(1, 2**31)) * 2**220)
                         for _ in range(4)], dtype=torch.int32)
     assert 0 < E.straus_least_int32_ops(big, big) < (
