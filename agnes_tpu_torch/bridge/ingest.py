@@ -687,22 +687,43 @@ class VoteBatcher:
     def signed_evidence(self, instance: int, validator: int
                         ) -> Optional[Tuple[WireVote, WireVote]]:
         """The two conflicting signed votes behind a device
-        equivocation flag: scans the retained batches in arrival order
-        for two votes by `validator` in `instance` with the same (height,
-        round, class) and different values.  Returns (first, second)
-        WireVotes whose signatures prove the double-sign to any third
-        party, or None.
+        equivocation flag: the first two votes, in arrival order, by
+        `validator` in `instance` with the same (height, round, class)
+        and different values.  Returns (first, second) WireVotes whose
+        signatures prove the double-sign to any third party, or None
+        (`signed_evidence_many` for one cell)."""
+        return self.signed_evidence_many([instance], [validator]).get(
+            (instance, validator))
+
+    def signed_evidence_many(self, instances, validators
+                             ) -> Dict[Tuple[int, int],
+                                       Tuple[WireVote, WireVote]]:
+        """`signed_evidence` for many (instance, validator) cells in one
+        walk of the retained batches: {cell: (first, second)} for the
+        cells that have a conflicting pair.
 
         Batches logged by device-verify builds are pre-verdict, so their
-        candidate votes are re-verified against that build's pubkey
-        table (one batched `_verify` per batch with candidates; on a
-        CUDA batcher the verify kernel) and unverifiable votes are
-        skipped.  Host-verified and unsigned builds logged post-screen
-        and are trusted."""
-        seen: Dict[Tuple[int, int, int], Tuple[int, Optional[bytes]]] = {}
+        candidate votes (the rows of cells still without a pair) are
+        re-verified against that build's pubkey table, in one batched
+        `_verify` per batch (on a CUDA batcher the verify kernel), and
+        unverifiable votes are skipped.  Host-verified and unsigned
+        builds logged post-screen and are trusted.  The walk stops after
+        the batch that completes the last pair."""
+        def packed(i, v):
+            return (np.asarray(i, np.int64) << 32) \
+                | (np.asarray(v, np.int64) & 0xFFFFFFFF)
+
+        open_cells = np.unique(packed(instances, validators))
+        seen: Dict[Tuple[int, int],
+                   Dict[Tuple[int, int, int],
+                        Tuple[int, Optional[bytes]]]] = {}
+        found: Dict[Tuple[int, int], Tuple[WireVote, WireVote]] = {}
         for batch, pk in zip(self._log, self._log_pk):
-            hit = np.nonzero((batch.instance == instance)
-                             & (batch.validator == validator))[0]
+            if len(open_cells) == 0:
+                break
+            hit = np.nonzero(np.isin(packed(batch.instance,
+                                            batch.validator),
+                                     open_cells))[0]
             if len(hit) == 0:
                 continue
             if pk is not None:
@@ -711,25 +732,31 @@ class VoteBatcher:
                 good = np.asarray(self._verify(batch.take(hit), pk))
                 hit = hit[good.astype(bool)]
             for k in hit:
+                cell = (int(batch.instance[k]), int(batch.validator[k]))
+                if cell in found:
+                    continue
                 key = (int(batch.height[k]), int(batch.round[k]),
                        int(batch.typ[k]))
-                val = int(batch.value[k])
+                val_k = int(batch.value[k])
                 sig = (batch.signature[k].tobytes()
                        if batch.signature is not None else None)
-                if key not in seen:
-                    seen[key] = (val, sig)
-                elif seen[key][0] != val:
+                votes = seen.setdefault(cell, {})
+                if key not in votes:
+                    votes[key] = (val_k, sig)
+                elif votes[key][0] != val_k:
                     h, r, t = key
-                    fv, fsig = seen[key]
 
                     def mk(v, s):
                         return WireVote(
-                            instance=instance, validator=validator,
+                            instance=cell[0], validator=cell[1],
                             height=h, round=r, typ=VoteType(t),
                             value=None if v == _NIL else v, signature=s)
 
-                    return mk(fv, fsig), mk(val, sig)
-        return None
+                    found[cell] = (mk(*votes[key]), mk(val_k, sig))
+            if found:
+                open_cells = np.setdiff1d(
+                    open_cells, packed(*np.asarray(list(found)).T))
+        return found
 
     def decode_slot(self, instance: int, slot: int) -> Optional[int]:
         """Device slot -> value id (for reading decisions back)."""

@@ -14,6 +14,7 @@ multiply-adds over the constant's limbs; column sums stay under
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import torch
@@ -47,8 +48,15 @@ L_LIMBS_LIST = _const_limbs(L)
 L_LIMBS_PADDED = L_LIMBS_LIST + [0] * (N_SCALAR - len(L_LIMBS_LIST))
 
 
+@functools.lru_cache(maxsize=None)
+def _l_limbs_on(device: torch.device) -> torch.Tensor:
+    """L's limbs on `device`, uploaded once (read-only): a fresh
+    upload per call would be a blocking copy on the step's path."""
+    return torch.tensor(L_LIMBS_PADDED, dtype=I32, device=device)
+
+
 def _l_limbs(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(L_LIMBS_PADDED, dtype=I32, device=like.device)
+    return _l_limbs_on(like.device)
 
 
 def _mul_const(a: torch.Tensor, const: List[int]) -> torch.Tensor:

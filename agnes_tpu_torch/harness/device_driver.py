@@ -8,13 +8,14 @@ message stream.
 
 Port notes: JAX donation becomes in-place state on the driver (each
 step's outputs replace `self.state` / `self.tally`); JAX's async
-dispatch becomes stream order — nothing here synchronizes the device
-except `_collect`, which reads each message batch back with one
-`.cpu()` copy.  Waiting for later slices: `step_async` and the serve
-plane, meshes, the dense signed step, verify chunking (the JAX
-driver's `verify_chunk`, with its "auto" HBM planner; the step function
-already takes `verify_chunk`), the retrace tripwire and the flight
-recorder.
+dispatch becomes stream order.  The signed paths and `step_async` read
+nothing back from the device: their vote and rejected-lane counts stay
+device scalars until `collect()`, and message batches are read back
+there (or at once by `_collect`, one `.cpu()` copy a batch, unless
+collection is deferred).  Waiting for later slices: the serve plane's
+double buffer and flight recorder (with `step_async`'s `tick` and
+`donate`), meshes
+and the dense signed step, and the retrace tripwire.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from agnes_tpu_torch.device.encoding import (
 from agnes_tpu_torch.device.step import (
     NULL_EVENT,
     ExtEvent,
+    SignedLanes,
     VotePhase,
     consensus_step,
     consensus_step_seq,
@@ -44,6 +46,7 @@ from agnes_tpu_torch.device.step import (
 )
 from agnes_tpu_torch.device.tally import TallyConfig, TallyState
 from agnes_tpu_torch.types import NIL_ID, VoteType
+from agnes_tpu_torch.utils.budget import device_hbm_bytes, plan_lane_verify
 
 
 @dataclass
@@ -74,12 +77,35 @@ class DeviceDriver:
                  n_rounds: int = 4, n_slots: int = 4,
                  proposer_is_self: bool = True,
                  advance_height: bool = False,
+                 defer_collect: bool = False,
+                 verify_chunk=None, hbm_budget_bytes: Optional[int] = None,
                  device="cuda"):
+        """`defer_collect`: steps return without reading anything back;
+        `collect()` (or `block_until_ready`) folds the queued message
+        batches and counts into the stats.
+
+        `verify_chunk` bounds the fused signed verify's memory peak
+        (`utils/budget.py`): None verifies every lane in one call; an
+        int streams that many instance rows (rows x V lanes) per
+        microbatch; "auto" sizes the tile from the card's memory
+        (`hbm_budget_bytes` overrides it, and a CPU driver must give
+        it).  Chunked and unchunked runs agree lane for lane."""
         self.device = resolve_device(device)
         self.I, self.V = n_instances, n_validators
         self.advance_height = advance_height
+        self.defer_collect = defer_collect
+        self.verify_chunk = verify_chunk
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self._lane_plans: dict = {}            # lanes -> VerifyPlan
+        self._deferred_msgs: list = []
+        # device scalars settled at collect: votes of the signed and
+        # async dispatches, and their device-verify rejects
+        self._pending_votes: list = []
+        self._pending_rejects: list = []
         self.rejected_signature_device = 0
-        self._pending_rejects: list = []       # device-verify rejects
+        # the last step_async dispatch's rejected-lane count (a device
+        # scalar; None for an unsigned dispatch)
+        self.last_step_rejects = None
         self.cfg = TallyConfig(n_validators=n_validators, n_rounds=n_rounds,
                                n_slots=n_slots)
         self.state = DeviceState.new((self.I,), device=self.device)
@@ -108,6 +134,43 @@ class DeviceDriver:
         total = _int32_total(pw)
         self.powers = torch.tensor(pw, dtype=I32, device=self.device)
         self.total = torch.tensor(total, dtype=I32, device=self.device)
+
+    def set_proposer_table(self, flags, rotation_period: int) -> None:
+        """Install a round-varying [I, R] proposer table.  The device
+        indexes it round % R, which is exact only when R is a multiple
+        of the rotation period (weighted round-robin repeats every
+        total_power rounds); a table that varies over rounds and breaks
+        that raises ValueError."""
+        f = torch.as_tensor(flags, dtype=torch.bool)
+        if not bool((f == f[:, :1]).all()) \
+                and f.shape[1] % rotation_period != 0:
+            raise ValueError(
+                f"proposer table covers {f.shape[1]} rounds; must be a "
+                f"multiple of the rotation period {rotation_period}")
+        self.proposer_flag = f.to(self.device)
+
+    # -- verify chunk planning -----------------------------------------------
+
+    def _resolve_lane_chunk(self, n_lanes: int) -> Optional[int]:
+        """Lanes per verify microbatch for the packed-lane signed path,
+        or None for one call.  An int knob is instance rows (rows x V
+        lanes); <= 0 rows, or a chunk covering the batch, is the
+        unchunked call.  "auto" plans once per lane count."""
+        if self.verify_chunk is None or n_lanes == 0:
+            return None
+        if self.verify_chunk != "auto":
+            rows = int(self.verify_chunk)
+            if rows <= 0:
+                return None
+            c = rows * self.V
+            return None if c >= n_lanes else c
+        if n_lanes not in self._lane_plans:
+            hbm = (self.hbm_budget_bytes if self.hbm_budget_bytes is not None
+                   else device_hbm_bytes(self.device))
+            self._lane_plans[n_lanes] = plan_lane_verify(n_lanes,
+                                                         hbm_bytes=hbm)
+        plan = self._lane_plans[n_lanes]
+        return plan.tile if plan.chunked else None
 
     # -- phase builders ------------------------------------------------------
 
@@ -157,11 +220,7 @@ class DeviceDriver:
                              self.total, self.proposer_flag,
                              self.propose_value,
                              advance_height=self.advance_height)
-        self.state, self.tally = out.state, out.tally
-        self.stats.steps += 1
-        self.stats.votes_ingested += int(phase.mask.sum())
-        self._collect(out.msgs)
-        return out.msgs
+        return self._finish_step(out, 1, int(phase.mask.sum()))
 
     def _stack_seq(self, phases, exts):
         P = len(phases)
@@ -172,38 +231,89 @@ class DeviceDriver:
         """P fused steps in one call (consensus_step_seq): `phases` is a
         list of VotePhase, `exts` an optional matching list."""
         phases_st, exts_st, P = self._stack_seq(phases, exts)
-        out = consensus_step_seq(self.state, self.tally, exts_st, phases_st,
-                                 self.powers, self.total, self.proposer_flag,
-                                 self.propose_value,
-                                 advance_height=self.advance_height)
-        self.state, self.tally = out.state, out.tally
-        self.stats.steps += P
-        self.stats.votes_ingested += int(phases_st.mask.sum())
-        self._collect(out.msgs)
-        return out.msgs
+        out = self._unsigned(phases_st, exts_st)
+        return self._finish_step(out, P, int(phases_st.mask.sum()))
+
+    def _unsigned(self, phases_st, exts_st):
+        return consensus_step_seq(self.state, self.tally, exts_st, phases_st,
+                                  self.powers, self.total, self.proposer_flag,
+                                  self.propose_value,
+                                  advance_height=self.advance_height)
+
+    def _signed(self, phases_st, exts_st, lanes: SignedLanes):
+        chunk = self._resolve_lane_chunk(int(lanes.pub.shape[0]))
+        return consensus_step_seq_signed(
+            self.state, self.tally, exts_st, phases_st, lanes, self.powers,
+            self.total, self.proposer_flag, self.propose_value,
+            advance_height=self.advance_height, verify_chunk=chunk)
 
     def step_seq_signed(self, phases, lanes, exts=None) -> DeviceMessage:
         """step_seq with signature verification fused in
         (consensus_step_seq_signed): `lanes` (SignedLanes, from
         VoteBatcher.build_phases_device) carries the packed Ed25519
-        inputs whose verdicts mask the phases on the device.  Rejected
-        lanes are counted into `rejected_signature_device` at collect."""
+        inputs whose verdicts mask the phases on the device, in
+        microbatches as `verify_chunk` sets.  Votes count real lanes
+        less the device's rejects, into `votes_ingested` and
+        `rejected_signature_device` at collect (at once unless
+        collection is deferred)."""
         phases_st, exts_st, P = self._stack_seq(phases, exts)
-        out = consensus_step_seq_signed(
-            self.state, self.tally, exts_st, phases_st, lanes, self.powers,
-            self.total, self.proposer_flag, self.propose_value,
-            advance_height=self.advance_height)
+        out = self._signed(phases_st, exts_st, lanes)
+        return self._finish_step(out, P, lanes.real.sum(), out.n_rejected)
+
+    def step_async(self, phases, lanes=None, exts=None) -> DeviceMessage:
+        """The serve plane's dispatch entry: queue a fused step sequence
+        and return without reading anything back.  Collection is always
+        deferred, whatever `defer_collect` says: call collect() or
+        block_until_ready() when the stats are needed.
+
+        `lanes` selects the path: SignedLanes runs the fused signed
+        step; None runs the plain sequence (host-verified or unsigned
+        phases).  The dense signed layout raises NotImplementedError
+        (ROADMAP §1 item 5, with the mesh)."""
+        phases_st, exts_st, P = self._stack_seq(phases, exts)
+        if lanes is None:
+            out = self._unsigned(phases_st, exts_st)
+            n_votes, n_rejected = phases_st.mask.sum(), None
+        elif isinstance(lanes, SignedLanes):
+            out = self._signed(phases_st, exts_st, lanes)
+            n_votes, n_rejected = lanes.real.sum(), out.n_rejected
+        else:
+            raise NotImplementedError(
+                f"step_async takes SignedLanes or None; the dense signed "
+                f"layout ({type(lanes).__name__}) comes with the mesh "
+                f"(ROADMAP §1 item 5)")
+        self.last_step_rejects = n_rejected
+        return self._finish_step(out, P, n_votes, n_rejected,
+                                 force_defer=True)
+
+    def _finish_step(self, out, P: int, n_votes, n_rejected=None,
+                     force_defer: bool = False) -> DeviceMessage:
+        """The bookkeeping tail of every dispatch: state/tally swap,
+        stats, message collection.  `n_votes` is an int or a device
+        scalar; device scalars and `n_rejected` are settled at collect
+        (`force_defer` is step_async's always-deferred contract)."""
         self.state, self.tally = out.state, out.tally
         self.stats.steps += P
-        # real lanes only; device rejects are subtracted at settle time
-        self.stats.votes_ingested += int(lanes.real.sum())
-        self._pending_rejects.append(out.n_rejected)
-        self._collect(out.msgs)
-        self._settle_rejects()
+        if isinstance(n_votes, torch.Tensor):
+            self._pending_votes.append(n_votes)
+        else:
+            self.stats.votes_ingested += n_votes
+        if n_rejected is not None:
+            self._pending_rejects.append(n_rejected)
+        if self.defer_collect or force_defer:
+            self._deferred_msgs.append(out.msgs)
+        else:
+            self._collect(out.msgs)
+            self._settle_counts()
         return out.msgs
 
-    def _settle_rejects(self) -> None:
+    def _settle_counts(self) -> None:
+        """Fold the pending device-scalar counts into the stats: votes
+        in, device-verify rejects out (one device read each)."""
+        votes, self._pending_votes = self._pending_votes, []
         rejects, self._pending_rejects = self._pending_rejects, []
+        for v in votes:
+            self.stats.votes_ingested += int(v)
         for r in rejects:
             n = int(r)
             self.rejected_signature_device += n
@@ -223,11 +333,8 @@ class DeviceDriver:
         out = honest_heights(self.state, self.tally, slots, mask,
                              self.powers, self.total, self.proposer_flag,
                              self.propose_value, heights=n_heights)
-        self.state, self.tally = out.state, out.tally
-        self.stats.steps += 3 * n_heights
-        self.stats.votes_ingested += 2 * n_heights * self.I * int(
-            voters.sum())
-        self._collect(out.msgs)
+        self._finish_step(out, 3 * n_heights, 2 * n_heights * self.I * int(
+            voters.sum()))
 
     def _collect(self, msgs: DeviceMessage) -> None:
         """Fold one message batch into the stats.  Leaves are
@@ -256,9 +363,30 @@ class DeviceDriver:
             self.stats.decided |= decided_now
 
     def collect(self) -> None:
-        """Settle any pending device-verify rejected-lane counts (message
-        batches are collected as each step returns)."""
-        self._settle_rejects()
+        """Drain deferred message batches into the stats (in step order:
+        decision latching is order-sensitive), and settle the pending
+        vote and rejected-lane counts."""
+        msgs, self._deferred_msgs = self._deferred_msgs, []
+        for m in msgs:
+            self._collect(m)
+        self._settle_counts()
+
+    def block_until_ready(self) -> "DeviceDriver":
+        """collect(), then wait for the driver's device."""
+        self.collect()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def equivocators_detected(self) -> np.ndarray:
+        """[I] count of flagged validators per instance."""
+        return self.tally.equiv.sum(dim=1).cpu().numpy()
+
+    def state_copies(self):
+        """Independent (state, tally) copies (tensor clones), e.g. for
+        warmup dispatches that must not touch the live state."""
+        return (DeviceState(*[t.clone() for t in self.state]),
+                TallyState(*[t.clone() for t in self.tally]))
 
     def all_decided(self, value: Optional[int] = None) -> bool:
         self.collect()
@@ -276,6 +404,15 @@ class DeviceDriver:
         self.step()
         self.step(phase=self.phase(round, VoteType.PREVOTE, slot))
         self.step(phase=self.phase(round, VoteType.PRECOMMIT, slot))
+
+    def run_heights(self, n_heights: int, slot: int = 1) -> None:
+        """Drive every instance through `n_heights` consecutive honest
+        heights, one run_honest_round each (advance_height=True: the
+        device installs the next height after each decision)."""
+        if not self.advance_height:
+            raise ValueError("construct with advance_height=True")
+        for _ in range(n_heights):
+            self.run_honest_round(0, slot)
 
     def run_nil_round(self, round: int = 0) -> None:
         """Round that times out (build with proposer_is_self=False)."""

@@ -53,9 +53,10 @@ def _atomic_savez(path: str, leaves: dict) -> None:
 
 def save_driver(driver, path: str) -> None:
     """Snapshot a harness.DeviceDriver (device tensors + stats) to
-    `path` (.npz).  Deferred device-verify rejects are settled first,
-    so `stats` and `meta` are the twin's at the same point."""
-    driver._settle_rejects()
+    `path` (.npz).  Pending vote and device-verify reject counts are
+    settled first, so `stats` and `meta` are the twin's at the same
+    point."""
+    driver._settle_counts()
     leaves = {}
     for name, t in zip(DeviceState._fields, driver.state):
         leaves[_STATE_PREFIX + name] = _host(t)

@@ -57,10 +57,38 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      classes — through VoteBatcher.add_arrays -> build_phases_device ->
      DeviceDriver.step_seq_signed; every instance must decide value 7 in
      round 0 with exactly 2 x I rejected lanes, and the verify kernel's
-     launch count over this run must be above zero.  The step is then
-     repeated on a fresh driver (same decisions) to time it warm, the
-     prologue is timed alone, and the kernel and its plain version are
-     timed on this run's 2,048,000 lanes and compared on all of them;
+     launch count over this run must be above zero.  The fixture's
+     columns are built before the timed window.  The step's device
+     workspace a lane ((peak - allocated before the step) / lanes) is
+     measured and must stay within the planner's constant
+     (`utils/budget.py::VERIFY_WORKSPACE_LANE_BYTES`).  The step is then
+     repeated on a fresh driver (same decisions) to time it warm; with
+     `verify_chunk="auto"` under a budget forced small enough for 4
+     chunks (4 verify launches, the same decisions and rejected lanes as
+     unchunked); and as two back-to-back signed `step_async` dispatches
+     under `torch.cuda.set_sync_debug_mode("error")`, which collected
+     must equal two `step_seq_signed` calls stat for stat and leaf for
+     leaf (`signed_variants`).  The prologue is timed alone, and the
+     kernel and its plain version are timed on this run's 2,048,000
+     lanes and compared on all of them;
+  3n. the signed height at the north-star shape, I = 10,000 x V = 1,000
+     (20,000,000 lanes, validator 7 forged in both classes), built as
+     phase 3 builds it, stepped by `DeviceDriver(..., verify_chunk=
+     "auto")`: every instance must decide 7 in round 0 with 2 x I
+     rejected lanes and advance to height 1; the verify kernel must be
+     launched exactly `plan.n_chunks` times, the plan being
+     `utils.budget.plan_lane_verify` on the card's memory, and the
+     step's peak device memory must stay within `plan.peak_bytes`.  It
+     logs the plan, the wall, `add_arrays`, `build_phases_device` and
+     the step, votes/s, the step's peak, the host's peak RSS and the
+     card.  The step is repeated under half the card's memory
+     (`hbm_budget_bytes`), where the plan has more than one chunk: one
+     launch a chunk, the peak within that plan, the same decisions.
+     Then the prologue and the kernel chunk by chunk at the plan's tile
+     (the step's own launch shape) by CUDA events; the verdicts of those
+     launches, and of the first chunk at half the card's tile, are held
+     against the plain version on the lanes of a 131,072-lane sample,
+     256 forged lanes among them (`north_star_phase`);
   4. four unsigned honest heights at I = 10,000 x V = 1,000
      (run_heights_fused): every instance must decide four heights;
   5. the MSM batch-verify path at full validator width: I = 64 x
@@ -102,7 +130,13 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      oracle, and `signed_evidence(i, 7)` None; the verify kernel must be
      launched exactly 4 + 5 x (sampled instances) times in the phase (the
      four ticks, and per instance two re-verified candidates of each
-     `signed_evidence(i, 9)` and one of `(i, 7)`).  The stages run in
+     `signed_evidence(i, 9)` and one of `(i, 7)`).  Then the evidence
+     join, `bridge.evidence.collect_device_evidence`, over every flag of
+     the restored driver's equivocation plane plus the forger's column:
+     one record per (instance, 9), equal to `signed_evidence` on the
+     sampled instances, each passing `verify_evidence`, none for the
+     forger, with one verify launch per logged device-verify batch; its
+     time is logged.  The stages run in
      `utils.tracing.span`s of a `Tracer` whose chrome trace must parse
      and hold every stage (`checkpoint_phase`).
 
@@ -127,6 +161,8 @@ from pathlib import Path
 DEVICE = "cuda"
 SEED = 20261016
 I_SIGNED, V_SIGNED = 1024, 1000
+I_NORTH = 10_000                   # phase 3n: the north-star instances
+N_NORTH_SAMPLE = 131_072           # phase 3n: lanes held against plain
 I_UNSIGNED, V_UNSIGNED, HEIGHTS = 10_000, 1_000, 4
 I_MSM, I_MSM_FORGED = 64, 2
 I_BLS, V_BLS = 4, 1000             # BLS lane: instances x validators
@@ -700,6 +736,268 @@ def chain_phase(bound) -> dict:
                  for r in rows]}
 
 
+def signed_variants(I, Vn, phases, lanes, ref) -> None:
+    """Phase 3's height again on fresh drivers: under a forced budget
+    the "auto" planner must chunk the verify (>= 3 launches) and decide
+    as the unchunked run `ref` did; two back-to-back signed `step_async`
+    dispatches must run under `torch.cuda.set_sync_debug_mode("error")`
+    (no read-back on the dispatch path) and, collected, equal two
+    `step_seq_signed` calls stat for stat and leaf for leaf."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.utils import budget
+
+    dev = lanes.pub.device
+    n = int(lanes.pub.shape[0])
+    ps = [p for p, _ in phases]
+    # room for 1.5 tiles of workspace, a tile the largest power of two
+    # <= n / 3: 4 chunks of 524,288 lanes at 2,048,000
+    tile = 1 << ((n // 3).bit_length() - 1)
+    hbm = int((n * 512 + 1.5 * tile * budget.VERIFY_WORKSPACE_LANE_BYTES)
+              / 0.9) + 1
+    plan = budget.plan_lane_verify(n, hbm_bytes=hbm)
+    auto = DeviceDriver(I, Vn, advance_height=True, device=dev,
+                        verify_chunk="auto", hbm_budget_bytes=hbm)
+    V.LAUNCHES = 0
+    auto.step_seq_signed([auto.empty_phase()] + ps, lanes)
+    launches = V.LAUNCHES
+
+    def stats(d):
+        return ((d.stats.votes_ingested, d.stats.steps,
+                 d.stats.decisions_total, d.rejected_signature_device),
+                [getattr(d.stats, f).tolist() for f in
+                 ("decided", "decision_value", "decision_round")])
+
+    def leaves(d):
+        return [t.cpu().numpy() for t in tuple(d.state) + tuple(d.tally)]
+
+    twice = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    for _ in range(2):
+        twice.step_seq_signed([twice.empty_phase()] + ps, lanes)
+    asy = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            asy.step_async([asy.empty_phase()] + ps, lanes)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_dispatch = time.perf_counter() - t0
+    queued = (asy.stats.votes_ingested, asy.stats.decisions_total)
+    asy.collect()
+    t_collect = time.perf_counter() - t0
+    checks = {
+        f"auto: {plan.n_chunks} chunks, one launch each":
+            plan.n_chunks >= 3 and launches == plan.n_chunks,
+        "auto decides as unchunked": stats(auto) == stats(ref),
+        "step_async: nothing read back before collect": queued == (0, 0),
+        "step_async x2 == step_seq_signed x2": stats(asy) == stats(twice)
+        and all(np.array_equal(a, b)
+                for a, b in zip(leaves(asy), leaves(twice))),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"signed height variants failed: {checks}")
+    log(f"[signed] auto under a forced budget of {hbm} B: {plan.describe()};"
+        f" {launches} verify launches, decisions and "
+        f"{ref.rejected_signature_device} rejected lanes as unchunked")
+    log(f"[signed] two signed step_async under sync debug mode 'error': "
+        f"dispatch returned in {t_dispatch:.3f} s, collect done at "
+        f"{t_collect:.3f} s; stats equal two step_seq_signed calls "
+        f"({stats(asy)[0]})")
+
+
+def north_star_phase(seeds, pubkeys, sigs, bound) -> dict:
+    """Phase 3n: one signed height at I = 10,000 x V = 1,000 (20,000,000
+    lanes) with the verify planner ("auto"); see the module docstring.
+    Returns its numbers for the verify kernel's line."""
+    import resource
+
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.types import VoteType
+    from agnes_tpu_torch.utils import budget
+
+    I, Vn = I_NORTH, V_SIGNED
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    cols = [fx.full_mesh_cols(I, Vn, seeds, 0, int(typ), VALUE, sigs=sigs[c])
+            for c, typ in enumerate((VoteType.PREVOTE, VoteType.PRECOMMIT))]
+    t_cols = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    for c in cols:
+        bat.add_arrays(*c)
+    t_add = time.perf_counter() - t0
+    phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+    if lanes is None or len(phases) != 2:
+        raise AssertionError("north-star height left the device path")
+    t_build = time.perf_counter() - t0
+    n = int(lanes.pub.shape[0])
+    drv = DeviceDriver(I, Vn, advance_height=True, device=dev,
+                       verify_chunk="auto")
+    plan = budget.plan_lane_verify(n, hbm_bytes=budget.device_hbm_bytes(dev))
+    seq = [drv.empty_phase()] + [p for p, _ in phases]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    drv.step_seq_signed(seq, lanes)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = V.LAUNCHES
+    rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    values = {bat.decode_slot(0, int(s))
+              for s in np.unique(drv.stats.decision_value)}
+    checks = {
+        "all decided": bool(drv.stats.decided.all()),
+        "round 0": bool((drv.stats.decision_round == 0).all()),
+        f"value {VALUE}": values == {VALUE},
+        "rejected == 2I": drv.rejected_signature_device == 2 * I,
+        "heights advanced": bool((drv.state.height == 1).all()),
+        "launches == plan.n_chunks": launches == plan.n_chunks,
+        "step peak <= plan.peak_bytes": peak <= plan.peak_bytes,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"north-star height failed: {checks}; "
+                             f"{plan.describe()}; peak {peak} B, "
+                             f"launches {launches}")
+    log(f"[north-star] I={I} V={Vn} lanes={n} {plan.describe()}")
+    log(f"[north-star] rejected={drv.rejected_signature_device} verify "
+        f"launches={launches} wall={wall:.3f} s (add_arrays {t_add:.3f} s, "
+        f"build_phases_device {t_build - t_add:.3f} s, step {t_step:.3f} s;"
+        f" fixture columns {t_cols:.3f} s before the window) verified "
+        f"votes/s={n / wall:.0f} (step only {n / t_step:.0f})")
+    log(f"[north-star] step peak {peak / 2**30:.3f} GiB (allocated before "
+        f"the step {before / 2**30:.3f} GiB) against the plan's "
+        f"{plan.peak_bytes / 2**30:.3f} GiB; host peak RSS {rss_gib:.2f} "
+        f"GiB; card {smi('name,power.limit')}")
+
+    # the same height under half the card's memory, where the planner
+    # must chunk: one launch a chunk, the peak within the plan, the same
+    # decisions
+    half = budget.device_hbm_bytes(dev) // 2
+    plan2 = budget.plan_lane_verify(n, hbm_bytes=half)
+    d2 = DeviceDriver(I, Vn, advance_height=True, device=dev,
+                      verify_chunk="auto", hbm_budget_bytes=half)
+    seq2 = [d2.empty_phase()] + [p for p, _ in phases]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    V.LAUNCHES = 0
+    t1 = time.perf_counter()
+    d2.step_seq_signed(seq2, lanes)
+    torch.cuda.synchronize()
+    t_half = time.perf_counter() - t1
+    peak2, launches2 = torch.cuda.max_memory_allocated(), V.LAUNCHES
+    checks = {
+        "half budget: launches == plan.n_chunks > 1":
+            plan2.n_chunks > 1 and launches2 == plan2.n_chunks,
+        "half budget: step peak <= plan.peak_bytes":
+            peak2 <= plan2.peak_bytes,
+        "half budget: same decisions and rejects": all(
+            np.array_equal(getattr(d2.stats, f), getattr(drv.stats, f))
+            for f in ("decided", "decision_value", "decision_round"))
+        and d2.rejected_signature_device == drv.rejected_signature_device,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"north-star height under half the card "
+                             f"failed: {checks}; {plan2.describe()}; peak "
+                             f"{peak2} B, launches {launches2}")
+    log(f"[north-star] under half the card ({half} B): {plan2.describe()};"
+        f" {launches2} verify launches, step {t_half:.3f} s, peak "
+        f"{peak2 / 2**30:.3f} GiB, decisions and rejects as above")
+    del d2, seq2
+
+    # the prologue and the kernel chunk by chunk at the plan's tile, the
+    # step's own launch shape, by CUDA events; the verdicts of those
+    # launches, and of the first chunk at half the card's tile, are held
+    # against plain on a sample of the lanes, the forged ones among them
+    rng = np.random.RandomState(SEED + 3)
+    val = lanes.val.cpu().numpy()
+    forged = np.nonzero(val == FORGED)[0]
+    n_forged = min(256, len(forged))
+    pick = rng.choice(n, N_NORTH_SAMPLE, replace=False)
+    pick = pick[val[pick] != FORGED][:N_NORTH_SAMPLE - n_forged]
+    idx = np.sort(np.concatenate([pick, rng.choice(forged, n_forged,
+                                                   replace=False)]))
+
+    def chunks(tile, stop):
+        """Prologue and kernel over lanes [0, stop) in chunks of `tile`:
+        (prologue ms, kernel ms, the sampled lanes' kernel verdicts,
+        their kernel inputs, their S < L flags, the sampled lanes)."""
+        pro = ker = 0.0
+        got, ins, oks = [], [], []
+        for i in range(0, stop, tile):
+            held = {}
+            pro += cuda_ms(lambda: held.setdefault("a", V.prologue(
+                lanes.pub[i:i + tile], lanes.sig[i:i + tile],
+                lanes.blocks[i:i + tile])), 1)
+            args, ok_s = held.pop("a")
+            ker += cuda_ms(lambda: held.setdefault(
+                "o", V.verify_signed5(*args)), 1)
+            sel = idx[(idx >= i) & (idx < min(i + tile, stop))] - i
+            sel = torch.from_numpy(sel).to(dev)
+            got.append(held.pop("o")[sel])
+            oks.append(ok_s[sel])
+            ins.append([a[..., sel] for a in args])
+            del args, ok_s
+        return (pro, ker, torch.cat(got),
+                [torch.cat(p, dim=-1).contiguous() for p in zip(*ins)],
+                torch.cat(oks), idx[idx < stop])
+
+    def hold(what, got, args, ok_s, at):
+        plain = {}
+        ms = cuda_ms(lambda: plain.setdefault("ok", V.verify_plain(*args)),
+                     1)
+        mism, err = compare(got, plain["ok"])
+        ok = ((got > 0) & ok_s).cpu().numpy()
+        is_forged = val[at] == FORGED
+        if mism or ok[is_forged].any() or not ok[~is_forged].all():
+            raise AssertionError(
+                f"north-star sample ({what}): kernel != plain on {mism} of "
+                f"{len(at)} lanes, or a forged lane passed / an honest "
+                f"lane failed")
+        log(f"[north-star] {what}: kernel == plain on a sample of "
+            f"{len(at)} lanes ({int(is_forged.sum())} forged, all "
+            f"rejected); plain {ms:.3f} ms")
+        return mism, err
+
+    pro_ms, ker_ms, got, args, ok_s, at = chunks(plan.tile, n)
+    bound_ms, bound_by = bound(V.INT32_OPS_PER_LANE * n, V.BYTES_PER_LANE * n)
+    log(f"[north-star] over {plan.n_chunks} chunks of {plan.tile} lanes: "
+        f"prologue {pro_ms:.3f} ms, verify kernel {ker_ms:.3f} ms (bound "
+        f"{bound_ms:.3f} ms, {bound_by}), rest of the step "
+        f"{t_step * 1e3 - pro_ms - ker_ms:.3f} ms")
+    mism, max_err = hold(f"{plan.n_chunks} launches of {plan.tile} lanes",
+                         got, args, ok_s, at)
+    del got, args, ok_s
+    _, ker2_ms, got, args, ok_s, at = chunks(plan2.tile, plan2.tile)
+    mism2, err2 = hold(f"the first of {plan2.n_chunks} chunks of "
+                       f"{plan2.tile} lanes (kernel {ker2_ms:.3f} ms)",
+                       got, args, ok_s, at)
+    return {"launches_north_star": launches,
+            "north_star_lanes": n, "north_star_chunks": plan.n_chunks,
+            "north_star_tile": plan.tile,
+            "launches_north_star_half_budget": launches2,
+            "north_star_kernel_ms": ker_ms,
+            "north_star_prologue_ms": pro_ms,
+            "north_star_bound_ms": bound_ms,
+            "north_star_sample_mismatches": mism + mism2,
+            "north_star_sample_max_abs_err": max(max_err, err2)}
+
+
 def checkpoint_phase(seeds, pubkeys, sigs) -> int:
     """Phase 7: checkpoint, resume and signed evidence at full validator
     width through the device-verify path (see the module docstring).
@@ -707,6 +1005,8 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
     import numpy as np
     import torch
 
+    from agnes_tpu_torch.bridge.evidence import (collect_device_evidence,
+                                                 verify_evidence)
     from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
     from agnes_tpu_torch.crypto import ed25519_ref as ref
     from agnes_tpu_torch.crypto import verify as V
@@ -727,7 +1027,7 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
               np.full(I, 8, np.int64), np.tile(sig8, (I, 1)))
     tr = Tracer()
     stages = ("prevote", "double_sign", "save", "load", "finish",
-              "evidence")
+              "evidence", "evidence_join")
 
     def signed_tick(bat, drv, cols, entry=False):
         bat.add_arrays(*cols)
@@ -782,6 +1082,15 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
                                bat.signed_evidence(i, EQUIVOCATOR),
                                bat2.signed_evidence(i, FORGED))
         launches = V.LAUNCHES
+        # the join over every flag of the restored copy, the forger's
+        # column flagged too (it must yield nothing)
+        with span("evidence_join", tr):
+            flags = drv2.tally.equiv.clone()
+            flags[:, FORGED] = True
+            t1 = time.perf_counter()
+            records = collect_device_evidence(flags, bat2)
+            t_join = time.perf_counter() - t1
+            join_launches = V.LAUNCHES - launches
         wall = time.perf_counter() - t0
         tpath = os.path.join(tmp, "trace.json")
         tr.write(tpath)
@@ -805,6 +1114,16 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
         and all(w.instance == i and w.validator == EQUIVOCATOR
                 and int(w.typ) == pv and oracle_ok(w) for w in ev)
         for i, (ev, again, _) in evidence.items())
+    t1 = time.perf_counter()
+    records_ok = all(verify_evidence(r, bytes(pubkeys[r.validator]))
+                     for r in records)
+    t_check = time.perf_counter() - t1
+
+    def fields(pair):
+        return [(w.instance, w.validator, w.height, w.round, int(w.typ),
+                 w.value, w.signature) for w in pair]
+
+    by_cell = {(r.instance, r.validator): r for r in records}
     decided = [{b.decode_slot(i, int(s))
                 for i, s in enumerate(d.stats.decision_value)}
                for d, b in ((drv, bat), (drv2, bat2))]
@@ -831,6 +1150,16 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
                                    for _, _, f in evidence.values()),
         "verify launches: 4 ticks + 5 re-verifies an instance": launches
         == 4 + 5 * len(sample),
+        "join: one record per (instance, 9), none for the forger": [
+            (r.instance, r.validator) for r in records]
+        == [(i, EQUIVOCATOR) for i in range(I)],
+        "join == signed_evidence on the sample": all(
+            fields((by_cell[i, EQUIVOCATOR].first,
+                    by_cell[i, EQUIVOCATOR].second)) == fields(ev)
+            for i, (ev, _, _) in evidence.items()),
+        "join records pass verify_evidence": records_ok,
+        "join: one re-verify per logged device-verify batch":
+            join_launches == sum(pk is not None for pk in bat2._log_pk),
         "trace holds every stage": {e["name"] for e in spans}
         == set(stages),
     }
@@ -844,6 +1173,10 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
         f"s, load {t_load:.3f} s; both copies decide {VALUE} in round 0, "
         f"rejected {rejects} in the finish; evidence on instances {sample}; "
         f"verify launches {launches}; phase {wall:.3f} s")
+    log(f"[checkpoint] evidence join over {int(flags.sum())} flags "
+        f"({I} of validator {EQUIVOCATOR}, {I} of the forger {FORGED}): "
+        f"{len(records)} records in {t_join:.3f} s with {join_launches} "
+        f"verify launches; verify_evidence on all of them {t_check:.3f} s")
     log("[checkpoint] spans (ms): " + ", ".join(
         f"{n} {v:.1f}" for n, v in span_ms.items()))
     return launches
@@ -883,6 +1216,7 @@ def main(argv=None) -> int:
         from agnes_tpu_torch.scripts import microbench_layout as MB
         from agnes_tpu_torch.scripts import verify_probe
         from agnes_tpu_torch.types import VoteType
+        from agnes_tpu_torch.utils import budget
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -1084,27 +1418,32 @@ def main(argv=None) -> int:
 
     # -- phase 3: one signed height at full width (the main path) ---------
     I, Vn = I_SIGNED, V_SIGNED
+    cols = [fx.full_mesh_cols(I, Vn, seeds, 0, typ, VALUE, sigs=sigs[c])
+            for c, typ in enumerate(classes)]
     torch.cuda.synchronize()
     V.LAUNCHES = 0
     t0 = time.perf_counter()
     bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
-    for c, typ in enumerate(classes):
-        bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, 0, typ, VALUE,
-                                          sigs=sigs[c]))
+    for c in cols:
+        bat.add_arrays(*c)
     t_add = time.perf_counter() - t0
     phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
     if lanes is None or len(phases) != 2:
         raise AssertionError("signed height did not take the device path")
     t_build = time.perf_counter() - t0
     drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    seq = [drv.empty_phase()] + [p for p, _ in phases]
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases], lanes)
+    drv.step_seq_signed(seq, lanes)
     torch.cuda.synchronize()
     t_step = time.perf_counter() - t1
     wall = time.perf_counter() - t0
     launches = V.LAUNCHES
     n_lanes = int(lanes.pub.shape[0])
+    ws_lane = (torch.cuda.max_memory_allocated() - before) / n_lanes
     values = {bat.decode_slot(i, int(s))
               for i, s in enumerate(drv.stats.decision_value)}
     checks = {
@@ -1114,6 +1453,8 @@ def main(argv=None) -> int:
         "rejected == 2I": drv.rejected_signature_device == 2 * I,
         "heights advanced": bool((drv.state.height == 1).all()),
         "kernel launched": launches > 0,
+        "workspace within the planner's constant":
+            ws_lane <= budget.VERIFY_WORKSPACE_LANE_BYTES,
     }
     if not all(checks.values()):
         raise AssertionError(f"signed height failed: {checks}")
@@ -1123,6 +1464,11 @@ def main(argv=None) -> int:
         f"{t_build - t_add:.3f} s, step {t_step:.3f} s) "
         f"verified votes/s={n_lanes / wall:.0f} (step only "
         f"{n_lanes / t_step:.0f})")
+    log(f"[signed] step workspace (peak - allocated before the step) / "
+        f"lanes = {ws_lane:.1f} B a lane (planner constant "
+        f"{budget.VERIFY_WORKSPACE_LANE_BYTES} B); allocated before the "
+        f"step {before / 2**30:.3f} GiB, step peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
     # the same step again on a fresh driver: steady state, without the
     # first launch of each operator (its decisions must not change)
@@ -1137,6 +1483,7 @@ def main(argv=None) -> int:
         raise AssertionError("repeated signed height diverged")
     log(f"[signed] repeat step (warm) {t_warm:.3f} s, verified votes/s="
         f"{n_lanes / t_warm:.0f}")
+    signed_variants(I, Vn, phases, lanes, drv)
 
     # where the step's time goes, then kernel vs plain at this lane count
     prologue_ms = cuda_ms(lambda: V.prologue(lanes.pub, lanes.sig,
@@ -1166,8 +1513,12 @@ def main(argv=None) -> int:
         "mismatches": mism + mism_small, "ms": ms, "kernel_ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "lanes": n_lanes}
-    del args, out_k, lanes, phases, bat, drv, warm
+    del args, out_k, lanes, phases, seq, bat, drv, warm, cols
     torch.cuda.empty_cache()
+
+    # -- phase 3n: the signed height at the north-star shape ---------------
+    rows["ed25519_verify_signed5"].update(
+        north_star_phase(seeds, pubkeys, sigs, bound))
 
     # -- phase 4: unsigned heights at the north-star state size -----------
     t0 = time.perf_counter()

@@ -3,7 +3,8 @@ at windows 5 and 4, pow, Straus, the BLS12-381 field multiply and
 reduce, the microbenchmark's field-multiply chain) against its plain
 PyTorch version (and the verify against the RFC 8032 oracle; the BLS
 field kernels at every group size and at odd shapes), one small
-signed height, both verify windows at a ragged batch (4,117 lanes), one
+signed height, the verify chunked and unchunked, both verify windows at
+a ragged batch (4,117 lanes), one
 small MSM-mode height, one small BLS aggregate +
 pairing product and a checkpoint round trip with signed evidence
 through the default-device entry points.  They skip where
@@ -82,6 +83,42 @@ def test_signed_height_on_default_device(cuda):
     assert drv.all_decided() and drv.rejected_signature_device == 2 * I
     assert {bat.decode_slot(i, int(s))
             for i, s in enumerate(drv.stats.decision_value)} == {9}
+
+
+def test_chunked_verify_equals_unchunked_on_the_card(cuda):
+    """The verify kernel over ragged chunks gives the unchunked verdicts,
+    one launch a chunk; "auto" under a budget that forces 4 chunks
+    decides as the unchunked driver does."""
+    from agnes_tpu_torch.device import step as ts
+    from agnes_tpu_torch.utils import budget
+
+    I, Vn = 8, 4
+    seeds = fx.deterministic_seeds(Vn)
+    pubkeys = fx.validator_pubkeys(seeds)
+    bat = VoteBatcher(I, Vn, n_slots=4)
+    for typ in (0, 1):
+        bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, 0, typ, 9,
+                                          forge_validator=0))
+    phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+    n = int(lanes.pub.shape[0])
+    full = ts._verify_lanes_chunked(lanes.pub, lanes.sig, lanes.blocks, None)
+    n0 = V.LAUNCHES
+    chunked = ts._verify_lanes_chunked(lanes.pub, lanes.sig, lanes.blocks, 20)
+    assert V.LAUNCHES - n0 == -(-n // 20)
+    assert full.tolist() == chunked.tolist() and int((~full).sum()) == 2 * I
+
+    hbm = int((n * 512 + 20 * budget.VERIFY_WORKSPACE_LANE_BYTES) / 0.9) + 1
+    assert budget.plan_lane_verify(n, hbm_bytes=hbm).n_chunks == 4
+    drivers = [DeviceDriver(I, Vn, advance_height=True, **kw)
+               for kw in ({}, {"verify_chunk": "auto",
+                               "hbm_budget_bytes": hbm})]
+    for d in drivers:
+        d.step_seq_signed([d.empty_phase()] + [p for p, _ in phases], lanes)
+        assert d.all_decided() and d.rejected_signature_device == 2 * I
+    np.testing.assert_array_equal(drivers[0].stats.decision_value,
+                                  drivers[1].stats.decision_value)
+    for a, b in zip(tuple(drivers[0].tally), tuple(drivers[1].tally)):
+        assert a.equal(b)
 
 
 def test_pow_kernel_matches_plain(cuda):

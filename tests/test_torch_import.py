@@ -1,7 +1,8 @@
 """The port stands alone: a fresh interpreter imports `agnes_tpu_torch`
 (the MSM slice's, the BLS lane's and the tooling's modules included),
 runs the CPU slice (fused honest heights, one signed height through the
-bridge, one BLS field product and reduce, the microbenchmark's chain, a
+bridge with the verify planner, the evidence join, one cross-plane
+replay, one BLS field product and reduce, the microbenchmark's chain, a
 traced checkpoint round trip of the driver and the batcher), and never
 loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
@@ -23,7 +24,9 @@ import torch
 
 import agnes_tpu_torch
 import agnes_tpu_torch.convert
+from agnes_tpu_torch.bridge.evidence import collect_device_evidence
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
+from agnes_tpu_torch.core.executor import WireTimeout, epoch_boundary_at
 from agnes_tpu_torch.crypto import ed25519_point  # noqa: F401
 from agnes_tpu_torch.crypto import bls_field as BF
 from agnes_tpu_torch.crypto import bls_pairing  # noqa: F401
@@ -31,13 +34,16 @@ from agnes_tpu_torch.crypto import bls_ref
 from agnes_tpu_torch.crypto import msm as M
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
+from agnes_tpu_torch.harness.replay import replay_trace
 from agnes_tpu_torch.serve.batcher import ShapeLadder
+from agnes_tpu_torch.types import Vote, VoteType
 from agnes_tpu_torch.scripts import microbench_layout as MB
 from agnes_tpu_torch.scripts import bls_fp_probe  # noqa: F401
 from agnes_tpu_torch.scripts import verify_probe  # noqa: F401
 from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry, BlsLane
 from agnes_tpu_torch.utils import (Tracer, load_batcher, load_driver,
                                    save_batcher, save_driver, span)
+from agnes_tpu_torch.utils import budget
 
 d = DeviceDriver(4, 4, advance_height=True, device="cpu")
 d.run_heights_fused(2)
@@ -51,9 +57,18 @@ for typ in (0, 1):
                                       forge_validator=2))
 phases, lanes = bat.build_phases_device(fx.validator_pubkeys(seeds),
                                         phase_offset=1)
-s = DeviceDriver(I, V, advance_height=True, device="cpu")
+s = DeviceDriver(I, V, advance_height=True, device="cpu",
+                 verify_chunk="auto", hbm_budget_bytes=1 << 30)
 s.step_seq_signed([s.empty_phase()] + [p for p, _ in phases], lanes)
 assert s.all_decided() and s.rejected_signature_device == 2 * I
+assert collect_device_evidence(s.tally.equiv, bat) == []
+assert budget.plan_lane_verify(16, hbm_bytes=1 << 30).n_chunks == 1
+
+rep = replay_trace([Vote(VoteType.PRECOMMIT, 0, 7, validator=v, height=0)
+                    for v in range(4)], 4, device="cpu")
+assert rep.decisions == {0: (0, 7)}
+assert epoch_boundary_at({1: None, 3: None}, 2) == 1
+assert WireTimeout(0, 0, 0).height == 0
 
 tr = Tracer()
 with tempfile.TemporaryDirectory() as tmp:
@@ -92,6 +107,8 @@ if not torch.cuda.is_available():
                  lambda: M.make_z(4),
                  lambda: BlsLane(reg, 1),
                  lambda: load_driver(os.devnull),
+                 lambda: budget.device_hbm_bytes(),
+                 lambda: replay_trace([], 4),
                  lambda: MB.main(["--lanes", "2048"])):
         try:
             make()
