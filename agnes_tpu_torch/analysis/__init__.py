@@ -1,0 +1,1 @@
+"""analysis layer of the PyTorch port (see the package docstring)."""

@@ -25,9 +25,12 @@ same; the mode is a throughput choice.  In MSM mode
 Port notes: device tensors are built from pinned host memory with
 non-blocking copies (the JAX twin's `jnp.asarray` sites); lanes are not
 rounded up to a power of two (nothing recompiles per shape here), though
-`lane_floor` still pads.  Waiting for later slices: the serve dedup
-columns, the dense (sharded) lane layout, native-phase adoption (and
-its evidence-log site) and the `max_votes` cap.
+`lane_floor` still pads; the serve plane builds exact lane counts too,
+capped at its ladder's top rung.  The serve pieces are the twin's: the dedup columns (`verified`,
+`digest`) riding the pending and held queues, `split_pending_verified`
+/ `adopt_pending`, `last_build_keys` and the `max_votes` cap
+(`_defer_pending`).  Waiting for later slices: the dense (sharded) lane
+layout and native-phase adoption (and its evidence-log site).
 
 Evidence.  Every build retains the votes it screened (`_log`), as the
 twin does: host-verified and unsigned builds after the screen, device-
@@ -99,35 +102,47 @@ class _Batch:
     typ: np.ndarray            # [N] int64
     value: np.ndarray          # [N] int64 (_NIL = nil)
     signature: Optional[np.ndarray]   # [N, 64] uint8 or None
-    # [N] bool: verified upstream (the BLS lane's cleared rows); None
-    # when no row is
+    # the serve plane's dedup columns: [N] bool verified upstream (a
+    # dedup-cache hit, or the BLS lane's cleared rows) and the [N, 32]
+    # wire SHA-256s; None when no row carries one
     verified: Optional[np.ndarray] = None
+    digest: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.instance)
 
     def take(self, idx: np.ndarray) -> "_Batch":
+        def opt(a):
+            return a[idx] if a is not None else None
+
         return _Batch(
             self.instance[idx], self.validator[idx], self.height[idx],
             self.round[idx], self.typ[idx], self.value[idx],
-            self.signature[idx] if self.signature is not None else None,
-            self.verified[idx] if self.verified is not None else None)
+            opt(self.signature), opt(self.verified), opt(self.digest))
+
+
+def _opt_concat(batches: List[_Batch], name: str, zeros) -> Optional[
+        np.ndarray]:
+    """Concatenate an optional column, zero-filling batches without it
+    (None when no batch has it)."""
+    cols = [getattr(b, name) for b in batches]
+    if all(c is None for c in cols):
+        return None
+    return np.concatenate([c if c is not None else zeros(len(b))
+                           for c, b in zip(cols, batches)])
 
 
 def _concat(batches: List[_Batch]) -> _Batch:
     if len(batches) == 1:
         return batches[0]            # no copy; columns are never mutated
-    sigs = [b.signature for b in batches]
-    sig = (None if all(s is None for s in sigs) else np.concatenate(
-        [s if s is not None else np.zeros((len(b), 64), np.uint8)
-         for s, b in zip(sigs, batches)]))
-    vers = [b.verified for b in batches]
-    ver = (None if all(v is None for v in vers) else np.concatenate(
-        [v if v is not None else np.zeros(len(b), bool)
-         for v, b in zip(vers, batches)]))
+    sig = _opt_concat(batches, "signature",
+                      lambda n: np.zeros((n, 64), np.uint8))
+    ver = _opt_concat(batches, "verified", lambda n: np.zeros(n, bool))
+    dig = _opt_concat(batches, "digest",
+                      lambda n: np.zeros((n, 32), np.uint8))
     return _Batch(*([np.concatenate([getattr(b, f) for b in batches])
                      for f in ("instance", "validator", "height", "round",
-                               "typ", "value")] + [sig, ver]))
+                               "typ", "value")] + [sig, ver, dig]))
 
 
 def vote_messages_np(height: np.ndarray, round_: np.ndarray,
@@ -212,6 +227,12 @@ class VoteBatcher:
         # (None: logged post-screen, nothing to re-check)
         self._log: List[_Batch] = []
         self._log_pk: List[Optional[np.ndarray]] = []
+        # (digest [N,32], instance [N], height [N]) of the real lanes the
+        # last device-verify build emitted (None when the build had no
+        # digest column or fell back host-verified): the serve pipeline
+        # inserts them into the dedup cache once that dispatch settles
+        # with zero rejected lanes
+        self.last_build_keys: Optional[Tuple] = None
         self.rejected_signature = 0
         self.rejected_malformed = 0
         self.overflow_votes = 0
@@ -232,15 +253,23 @@ class VoteBatcher:
     # -- enqueue -------------------------------------------------------------
 
     def add_arrays(self, instance, validator, height, round_, typ, value,
-                   signatures: Optional[np.ndarray] = None) -> None:
+                   signatures: Optional[np.ndarray] = None,
+                   verified: Optional[np.ndarray] = None,
+                   digest: Optional[np.ndarray] = None) -> None:
         """Bulk enqueue: [N] integer arrays (+ optional [N, 64] uint8
-        signatures).  value < 0 means nil."""
+        signatures).  value < 0 means nil.  `verified` / `digest` are the
+        serve plane's dedup columns (queue.WireColumns): a [N] bool
+        cache-hit mask and the [N, 32] wire SHA-256s; they ride the
+        pending and held queues so the pipeline can keep pre-verified
+        re-deliveries apart from fresh traffic."""
         self._pending.append(_Batch(
             np.asarray(instance, np.int64), np.asarray(validator, np.int64),
             np.asarray(height, np.int64), np.asarray(round_, np.int64),
             np.asarray(typ, np.int64), np.asarray(value, np.int64),
             np.asarray(signatures, np.uint8)
-            if signatures is not None else None))
+            if signatures is not None else None,
+            np.asarray(verified, bool) if verified is not None else None,
+            np.asarray(digest, np.uint8) if digest is not None else None))
 
     def add_class_votes(self, instance, validator, height, round_, typ,
                         value) -> None:
@@ -252,9 +281,8 @@ class VoteBatcher:
         build when they are pending).  Callers must have a cleared
         pairing or a per-share verify behind every row."""
         n = len(np.asarray(instance))
-        self.add_arrays(instance, validator, height, round_, typ, value)
-        self._pending[-1] = replace(self._pending[-1],
-                                    verified=np.ones(n, bool))
+        self.add_arrays(instance, validator, height, round_, typ, value,
+                        verified=np.ones(n, bool))
 
     # -- device sync ---------------------------------------------------------
 
@@ -284,6 +312,71 @@ class VoteBatcher:
         validators via `signed_evidence` first)."""
         self._log = []
         self._log_pk = []
+
+    # -- the serve plane's queue surface -------------------------------------
+
+    @property
+    def held_votes(self) -> int:
+        """Future-round votes held back (they re-enter on the
+        sync_device that rotates their window in)."""
+        return self._held_n
+
+    @property
+    def pending_votes(self) -> int:
+        """Votes enqueued but not yet drained by a build."""
+        return sum(len(b) for b in self._pending)
+
+    def split_pending_verified(self) -> List[_Batch]:
+        """Remove the pre-verified rows (the `verified` column) from the
+        pending queue and return them as their own batches, arrival
+        order kept within each stream.  The pipeline builds the fresh
+        rows signed, then hands these back through `adopt_pending` and
+        builds them unsigned.  The split lives here because held
+        future-round votes re-enter `_pending` with their flag: a fresh
+        vote must never ride an unsigned build."""
+        pre: List[_Batch] = []
+        fresh: List[_Batch] = []
+        for b in self._pending:
+            v = b.verified
+            if v is None or not v.any():
+                fresh.append(b)
+            elif v.all():
+                pre.append(b)
+            else:
+                pre.append(b.take(np.nonzero(v)[0]))
+                fresh.append(b.take(np.nonzero(~v)[0]))
+        self._pending = fresh
+        return pre
+
+    def adopt_pending(self, batches: List[_Batch]) -> None:
+        """Re-queue batches returned by `split_pending_verified`."""
+        self._pending.extend(batches)
+
+    def _defer_pending(self, max_votes: Optional[int]) -> List[_Batch]:
+        """Cap the next build at `max_votes` pending votes (arrival
+        order; a straddling batch splits) and return the deferred tail,
+        which the caller restores after the build.  The serve plane's
+        ladder cap: a held burst re-entering beside a full tick builds
+        separately, each onto a warmed rung."""
+        if max_votes is None:
+            return []
+        if int(max_votes) <= 0:
+            raise ValueError(f"max_votes must be positive: {max_votes}")
+        left = int(max_votes)
+        head: List[_Batch] = []
+        tail: List[_Batch] = []
+        for b in self._pending:
+            if left <= 0:
+                tail.append(b)
+            elif len(b) <= left:
+                head.append(b)
+                left -= len(b)
+            else:
+                head.append(b.take(np.arange(left)))
+                tail.append(b.take(np.arange(left, len(b))))
+                left = 0
+        self._pending = head
+        return tail
 
     # -- host -> device ------------------------------------------------------
 
@@ -364,14 +457,25 @@ class VoteBatcher:
     # -- densification -------------------------------------------------------
 
     def build_phases(self, pubkeys: Optional[np.ndarray] = None,
-                     _device_verify: bool = False
+                     _device_verify: bool = False,
+                     max_votes: Optional[int] = None
                      ) -> List[Tuple[VotePhase, int]]:
         """Drain pending votes into dense phases: [(phase, n_votes)], one
         per (round, class, layer), deterministic order.  With `pubkeys`,
         signatures are batch-verified first and failures dropped (and
         counted).  `_device_verify` (internal; use build_phases_device)
         defers the bulk verification to the fused step — only the
-        host-tallied subsets (past rounds, slot spill) verify here."""
+        host-tallied subsets (past rounds, slot spill) verify here.
+        `max_votes` caps the build at the oldest `max_votes` pending
+        votes; the rest stay pending (`_defer_pending`)."""
+        if max_votes is not None:
+            tail = self._defer_pending(max_votes)
+            try:
+                return self.build_phases(pubkeys,
+                                         _device_verify=_device_verify)
+            finally:
+                if tail:
+                    self._pending.extend(tail)
         if not self._pending:
             return []
         b, self._pending = _concat(self._pending), []
@@ -559,7 +663,8 @@ class VoteBatcher:
 
     def build_phases_device(self, pubkeys: np.ndarray,
                             phase_offset: int = 0,
-                            lane_floor: int = 0):
+                            lane_floor: int = 0,
+                            max_votes: Optional[int] = None):
         """Drain pending votes into dense phases with verification
         deferred to the device: returns (phases, SignedLanes) where lane
         j carries one emitted vote's packed Ed25519 inputs keyed to its
@@ -569,8 +674,11 @@ class VoteBatcher:
         Falls back to the HOST-verified build — (phases, None) — when
         the traffic is not the honest dense shape, and in MSM mode.  `lane_floor` pads
         the lanes to at least that many with copies of lane 0 aimed at
-        an out-of-range phase (dropped on the device; `real` False)."""
-        phases, cat, pidx = self._build_device_common(pubkeys)
+        an out-of-range phase (dropped on the device; `real` False).
+        `max_votes` caps the build at the oldest pending votes
+        (`_defer_pending`)."""
+        phases, cat, pidx = self._build_device_common(pubkeys,
+                                                      max_votes=max_votes)
         if cat is None:
             return phases, None
         phase_idx = pidx + phase_offset
@@ -593,24 +701,45 @@ class VoteBatcher:
             real=t(real))
         return phases, lanes
 
-    def _build_device_common(self, pubkeys: np.ndarray):
+    def _build_device_common(self, pubkeys: np.ndarray,
+                             max_votes: Optional[int] = None):
         """Shared device-verify build core: (phases, cat, phase_idx)
         with 0-based numpy phase indices, or (host-verified phases,
-        None, None) on the fallback paths (ineligible traffic, MSM mode)."""
-        if self.verify_mode != "lanes" or not self._device_verify_eligible():
-            return self.build_phases(pubkeys), None, None
-        self._emitted_lane_groups = []
-        phases = self.build_phases(pubkeys, _device_verify=True)
-        groups, self._emitted_lane_groups = self._emitted_lane_groups, []
-        self._dv_pubkeys = None
-        if not phases:
-            return [], None, None
-        if len(groups) != len(phases):
-            raise RuntimeError("lane groups out of step with phases")
-        cat = _concat(groups)
-        phase_idx = np.concatenate([np.full(len(g), i, np.int64)
-                                    for i, g in enumerate(groups)])
-        return phases, cat, phase_idx
+        None, None) on the fallback paths (ineligible traffic, MSM mode).
+        `max_votes` defers the pending tail before the eligibility gate,
+        so eligibility is judged on exactly the votes this build
+        drains."""
+        tail = self._defer_pending(max_votes)
+        self.last_build_keys = None
+        # digests are all-or-none across the batches this build drains:
+        # _concat zero-fills a missing column, and a zero digest must
+        # never become a cache key
+        all_digests = bool(self._pending) and all(
+            b.digest is not None for b in self._pending)
+        try:
+            if (self.verify_mode != "lanes"
+                    or not self._device_verify_eligible()):
+                return self.build_phases(pubkeys), None, None
+            self._emitted_lane_groups = []
+            phases = self.build_phases(pubkeys, _device_verify=True)
+            groups, self._emitted_lane_groups = \
+                self._emitted_lane_groups, []
+            self._dv_pubkeys = None
+            if not phases:
+                return [], None, None
+            if len(groups) != len(phases):
+                raise RuntimeError("lane groups out of step with phases")
+            cat = _concat(groups)
+            phase_idx = np.concatenate([np.full(len(g), i, np.int64)
+                                        for i, g in enumerate(groups)])
+            if all_digests and cat.digest is not None:
+                # cache keys for exactly the emitted real lanes
+                self.last_build_keys = (cat.digest, cat.instance,
+                                        cat.height)
+            return phases, cat, phase_idx
+        finally:
+            if tail:
+                self._pending.extend(tail)
 
     def _intern_and_spill(self, b: _Batch, layer: Optional[np.ndarray] = None):
         """Intern slots; votes whose value overflows the instance's slot

@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = CSRC / "build"
@@ -36,6 +36,14 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> seconds the nvcc build took in this process (0.0 when cached)
 build_seconds: Dict[str, float] = {}
+# callables (name, seconds) told of every nvcc build that ran
+_observers: List[Callable[[str, float], None]] = []
+
+
+def on_build(fn: Callable[[str, float], None]) -> None:
+    """Call `fn(name, seconds)` after each nvcc build this process runs
+    (the serve plane's flight recorder dates them)."""
+    _observers.append(fn)
 
 
 def _nvcc() -> str:
@@ -86,6 +94,8 @@ def _finish(name: str, job) -> None:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):"
                            f"\n{out}")
     os.replace(tmp, lib)
+    for fn in list(_observers):
+        fn(name, build_seconds[name])
 
 
 def build_all(names: List[str]) -> None:

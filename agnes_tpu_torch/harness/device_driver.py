@@ -12,10 +12,13 @@ dispatch becomes stream order.  The signed paths and `step_async` read
 nothing back from the device: their vote and rejected-lane counts stay
 device scalars until `collect()`, and message batches are read back
 there (or at once by `_collect`, one `.cpu()` copy a batch, unless
-collection is deferred).  Waiting for later slices: the serve plane's
-double buffer and flight recorder (with `step_async`'s `tick` and
-`donate`), meshes
-and the dense signed step, and the retrace tripwire.
+collection is deferred).  The serve plane's pieces are the twin's: the
+retrace tripwire (`audit=`, `_observe` on the signed and unsigned
+sequence entries), the flight recorder (`flightrec`, a `dispatch` event
+per `step_async`, stamped with the serve tick) and `step_async`'s
+`tick`.  The twin's `donate` is left out: a torch step already returns
+fresh tensors, and nothing is copied that donation would save.  Waiting
+for later slices: meshes and the dense signed step.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ class DeviceDriver:
                  advance_height: bool = False,
                  defer_collect: bool = False,
                  verify_chunk=None, hbm_budget_bytes: Optional[int] = None,
-                 device="cuda"):
+                 audit=False, device="cuda"):
         """`defer_collect`: steps return without reading anything back;
         `collect()` (or `block_until_ready`) folds the queued message
         batches and counts into the stats.
@@ -89,8 +92,24 @@ class DeviceDriver:
         int streams that many instance rows (rows x V lanes) per
         microbatch; "auto" sizes the tile from the card's memory
         (`hbm_budget_bytes` overrides it, and a CPU driver must give
-        it).  Chunked and unchunked runs agree lane for lane."""
+        it).  Chunked and unchunked runs agree lane for lane.
+
+        `audit=True` (or a ready RetraceSentinel) installs the retrace
+        tripwire (analysis/retrace.py) on the sequence entries: each
+        dispatch's (entry, signature) is observed, and once
+        `ServePipeline.warmup()` arms the sentinel an unwarmed one
+        raises RetraceError."""
         self.device = resolve_device(device)
+        if audit:
+            from agnes_tpu_torch.analysis.retrace import RetraceSentinel
+
+            self.sentinel = (audit if isinstance(audit, RetraceSentinel)
+                             else RetraceSentinel())
+        else:
+            self.sentinel = None
+        # optional utils/flightrec.FlightRecorder: every step_async
+        # dispatch and retrace trip leaves an event in its ring
+        self.flightrec = None
         self.I, self.V = n_instances, n_validators
         self.advance_height = advance_height
         self.defer_collect = defer_collect
@@ -172,6 +191,24 @@ class DeviceDriver:
         plan = self._lane_plans[n_lanes]
         return plan.tile if plan.chunked else None
 
+    # -- retrace tripwire ----------------------------------------------------
+
+    def _observe(self, entry: str, args, statics=()) -> None:
+        """Feed one dispatch's (entry, signature) to the sentinel when
+        auditing: unarmed it learns the expected set; armed, a signature
+        outside it raises and counts `retrace_unexpected` (and leaves a
+        flight-recorder event first)."""
+        if self.sentinel is not None:
+            from agnes_tpu_torch.analysis.retrace import signature
+
+            try:
+                self.sentinel.observe(entry, signature(args, statics))
+            except Exception:
+                if self.flightrec is not None:
+                    self.flightrec.event("retrace_unexpected",
+                                         entry=entry)
+                raise
+
     # -- phase builders ------------------------------------------------------
 
     def _full(self, shape, value: int, dtype=I32) -> torch.Tensor:
@@ -234,18 +271,36 @@ class DeviceDriver:
         out = self._unsigned(phases_st, exts_st)
         return self._finish_step(out, P, int(phases_st.mask.sum()))
 
-    def _unsigned(self, phases_st, exts_st):
-        return consensus_step_seq(self.state, self.tally, exts_st, phases_st,
-                                  self.powers, self.total, self.proposer_flag,
-                                  self.propose_value,
-                                  advance_height=self.advance_height)
+    def _unsigned(self, phases_st, exts_st, state=None, tally=None):
+        """The plain sequence entry on the live state, or on the given
+        state copies (warmup)."""
+        args = (self.state if state is None else state,
+                self.tally if tally is None else tally, exts_st, phases_st,
+                self.powers, self.total, self.proposer_flag,
+                self.propose_value)
+        self._observe("consensus_step_seq", args, (self.advance_height,))
+        return consensus_step_seq(*args, advance_height=self.advance_height)
 
-    def _signed(self, phases_st, exts_st, lanes: SignedLanes):
-        chunk = self._resolve_lane_chunk(int(lanes.pub.shape[0]))
+    def _signed(self, phases_st, exts_st, lanes: SignedLanes, state=None,
+                tally=None):
+        """The fused signed sequence entry (see `_unsigned`).  The
+        tripwire keys the lanes on their ladder rung (analysis/
+        retrace.py); the verify tile follows from the lane count."""
+        n_lanes = int(lanes.pub.shape[0])
+        chunk = self._resolve_lane_chunk(n_lanes)
+        args = (self.state if state is None else state,
+                self.tally if tally is None else tally, exts_st, phases_st,
+                lanes, self.powers, self.total, self.proposer_flag,
+                self.propose_value)
+        if self.sentinel is not None:
+            from agnes_tpu_torch.analysis.retrace import lane_signature
+
+            self._observe("consensus_step_seq_signed",
+                          args[:4] + args[5:],
+                          (self.advance_height, lane_signature(
+                              lanes, self.sentinel.lane_key(n_lanes))))
         return consensus_step_seq_signed(
-            self.state, self.tally, exts_st, phases_st, lanes, self.powers,
-            self.total, self.proposer_flag, self.propose_value,
-            advance_height=self.advance_height, verify_chunk=chunk)
+            *args, advance_height=self.advance_height, verify_chunk=chunk)
 
     def step_seq_signed(self, phases, lanes, exts=None) -> DeviceMessage:
         """step_seq with signature verification fused in
@@ -260,16 +315,22 @@ class DeviceDriver:
         out = self._signed(phases_st, exts_st, lanes)
         return self._finish_step(out, P, lanes.real.sum(), out.n_rejected)
 
-    def step_async(self, phases, lanes=None, exts=None) -> DeviceMessage:
+    def step_async(self, phases, lanes=None, exts=None,
+                   tick: Optional[int] = None) -> DeviceMessage:
         """The serve plane's dispatch entry: queue a fused step sequence
-        and return without reading anything back.  Collection is always
-        deferred, whatever `defer_collect` says: call collect() or
-        block_until_ready() when the stats are needed.
+        and return without reading anything back, so the host densifies
+        the next batch while the card runs this one.  Collection is
+        always deferred, whatever `defer_collect` says: call collect()
+        or block_until_ready() when the stats are needed.
 
         `lanes` selects the path: SignedLanes runs the fused signed
         step; None runs the plain sequence (host-verified or unsigned
         phases).  The dense signed layout raises NotImplementedError
-        (ROADMAP §1 item 5, with the mesh)."""
+        (ROADMAP §1 item 5, with the mesh).  `tick` is the serve
+        plane's tick id: it
+        stamps the flight recorder's `dispatch` event, which carries the
+        step count and the lane count (the vote count is a device
+        scalar until collect)."""
         phases_st, exts_st, P = self._stack_seq(phases, exts)
         if lanes is None:
             out = self._unsigned(phases_st, exts_st)
@@ -283,6 +344,12 @@ class DeviceDriver:
                 f"layout ({type(lanes).__name__}) comes with the mesh "
                 f"(ROADMAP §1 item 5)")
         self.last_step_rejects = n_rejected
+        if self.flightrec is not None:
+            self.flightrec.event(
+                "dispatch", tick=tick, phases=P,
+                lanes=None if lanes is None else int(lanes.pub.shape[0]),
+                entry=("consensus_step_seq" if lanes is None
+                       else "consensus_step_seq_signed"))
         return self._finish_step(out, P, n_votes, n_rejected,
                                  force_defer=True)
 

@@ -31,9 +31,12 @@ raises when no class rungs are planned.
 
 Every field product and reduce of both device calls is a launch of the
 CUDA kernels of `csrc/bls_fp.cu` on the card (the plain PyTorch versions
-for a lane on the CPU).  Not ported with the lane (serve-plane work):
-the C++ admission screen (`native_screen`), the model checker's clone
-surface, the retrace tripwire; the host side is numpy + stdlib."""
+for a lane on the CPU).  Bound to a serve plane (`bind` with the
+service's driver, registry and ladder), each MSM and pairing call is
+observed by the driver's retrace tripwire and each pairing dispatch
+leaves a flight-recorder event.  Not ported: the C++ admission screen
+(`native_screen`, ROADMAP §1 item 4) and the model checker's clone
+surface; the host side is numpy + stdlib."""
 
 from __future__ import annotations
 
@@ -51,11 +54,10 @@ from agnes_tpu_torch.crypto import bls_ref as ref
 from agnes_tpu_torch.crypto.encoding import vote_signing_bytes
 from agnes_tpu_torch.device.encoding import resolve_device
 from agnes_tpu_torch.serve.batcher import _ceil_pow2
-
-#: metric names (the twin's `agnes_tpu.utils.metrics` names): the
-#: pairing wall per class, and the count of device pairing dispatches
-BLS_PAIRING_WALL_S = "bls_pairing_wall_s"
-BLS_DEVICE_PAIRING_DISPATCHES = "bls_device_pairing_dispatches"
+from agnes_tpu_torch.utils.metrics import (  # noqa: F401 (re-exported)
+    BLS_DEVICE_PAIRING_DISPATCHES,
+    BLS_PAIRING_WALL_S,
+)
 
 #: wire record: the 96-byte Ed25519 record's 32-byte header followed
 #: by a 192-byte UNCOMPRESSED G2 share (bls_ref.g2_to_bytes layout) —
@@ -537,7 +539,11 @@ class BlsLane:
         w[:n] = self.registry.powers[signers]
         args = [torch.from_numpy(a).to(self.device)
                 for a in (pk_rows, sig_rows, BLS.pack_weights(w))]
-        return BLS.bls_aggregate(*args, n_windows=self.registry.n_windows)
+        nw = self.registry.n_windows
+        if self.driver is not None:
+            self.driver._observe("bls_aggregate", tuple(args),
+                                 statics=(nw,))
+        return BLS.bls_aggregate(*args, n_windows=nw)
 
     def _aggregate_device(self, cls: AggregateClass, signers):
         """Host-pairing mode's aggregation: MSM dispatch + one fetch at
@@ -592,6 +598,8 @@ class BlsLane:
             pad = rung - C
             p = torch.stack(p_rows + [torch.zeros_like(p_rows[0])] * pad)
             q = torch.stack(q_rows + [torch.zeros_like(q_rows[0])] * pad)
+            if self.driver is not None:
+                self.driver._observe("bls_pairing_product", (p, q))
             if dev.type == "cuda":
                 # the queued MSMs first, so the histogram times the
                 # pairing itself
@@ -604,6 +612,10 @@ class BlsLane:
             self.counters[BLS_DEVICE_PAIRING_DISPATCHES] += 1
             if self.metrics is not None:
                 self.metrics.count(BLS_DEVICE_PAIRING_DISPATCHES)
+            fr = getattr(self.driver, "flightrec", None)
+            if fr is not None:
+                fr.event(BLS_DEVICE_PAIRING_DISPATCHES, classes=C,
+                         rung=rung, wall_s=round(wall, 4))
             for (mk, *_rest), verdict in zip(chunk, ok[:C]):
                 out[mk] = bool(verdict)
         return out

@@ -1,0 +1,564 @@
+"""Double-buffered densify/dispatch loop of the serve plane (twin of
+`agnes_tpu.serve.pipeline`).
+
+While the card runs the fused signed step of batch k
+(DeviceDriver.step_async: deferred collection, nothing read back), the
+host densifies batch k+1 (VoteBatcher.add_arrays -> build_phases_device,
+the offline densify stages reused as they are, so streamed and offline
+builds cannot diverge).  One staged slot — a FIFO when a tick stages
+several capped builds — is the whole buffer discipline:
+
+    pump(batch):
+      1. DISPATCH the staged (already densified) batch     [card]
+      2. DENSIFY `batch` into the staged slot              [host]
+
+Step 2's host work overlaps step 1's device work as far as step 1's
+launch returns before the card has run it.  The signed step is hundreds
+of torch launches, and on an H100 at 1,024 x 1,000 the card keeps pace
+with them, so the launch ends with the step and the densify finds an
+idle card (PERF.md §6): the double buffer is in place, and the
+overlap waits for a launch that returns at once (a captured graph of
+each warmed shape).  Both steps use the current stream: the next
+height's lanes and phases upload through pinned memory with
+non-blocking copies queued behind the step in flight.
+
+Window discipline: densify needs the batcher synced to the card's
+(base_round, heights), and reading those back waits for the step in
+flight.  Honest-path serving passes `window_predictor` (round 0, height
+h) and keeps the loop free of reads; without one the pipeline reads the
+window per stage, correct and serializing.
+
+Entry phases: the offline per-height loop prepends one empty entry phase
+(round entry + self-proposal) per height; the pipeline does the same
+whenever the window heights advance past the last entry it dispatched
+(and on every signed build), so honest streamed traffic reproduces the
+offline step sequence exactly.  The entry phase is built from host
+heights by a pinned non-blocking upload, never by a synchronizing copy.
+
+Degenerate ticks (zero votes, all held, all stale) densify to nothing
+and skip the dispatch: a counted no-op.
+
+Signed builds keep their exact lane count, capped at the ladder's top
+rung; the retrace tripwire keys each on the smallest rung that holds it
+(analysis/retrace.py), so no padding lane does verify work.
+
+Not ported yet: the native zero-copy adopt branch of `stage` and
+`native_phase_state` (ROADMAP §1 item 4), the dense dispatch mode with
+the mesh (item 5), and the pod's padding primitives (`pad_staged_to`,
+`stage_padding`, item 6).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from agnes_tpu_torch.device.encoding import I32, stack_tuples
+from agnes_tpu_torch.device.step import SignedLanes, VotePhase
+from agnes_tpu_torch.serve.batcher import ShapeLadder
+from agnes_tpu_torch.types import NIL_ID
+
+
+@dataclass
+class _StagedBatch:
+    """A densified batch waiting for its dispatch."""
+
+    phases: list               # [VotePhase]
+    lanes: object              # SignedLanes | None (host-verified)
+    entry: bool                # entry phase prepended?
+    entry_heights: Optional[np.ndarray]
+    n_votes: int
+    t_first: float             # earliest admission instant
+    # dedup-cache insertion candidates of a signed build: (digest
+    # [N,32], instance [N], height [N]) of its real lanes, inserted at
+    # settle iff the dispatch rejected zero lanes
+    cache_keys: Optional[tuple] = None
+    preverified: bool = False  # unsigned build of dedup-cache hits
+    tick: int = 0              # monotonic lifecycle id
+
+
+@dataclass
+class _Inflight:
+    t_first: float
+    n_votes: int
+    t_dispatch: float
+    cache_keys: Optional[tuple] = None
+    rejects: object = None     # deferred device rejected-lane count
+    tick: int = 0
+
+
+class ServePipeline:
+    """Densify + dispatch with one staged slot (module docstring).
+
+    Builds are capped at the ladder's top rung, and held-vote re-entry
+    builds apart from the fresh batch, so every build fits under a
+    warmed rung (`offladder_builds` stays 0: a regression alarm).  A
+    tick can stage several builds; `dispatch_staged` queues them back
+    to back."""
+
+    def __init__(self, driver, batcher, pubkeys: Optional[np.ndarray],
+                 ladder: ShapeLadder,
+                 window_predictor: Optional[Callable] = None,
+                 cache=None,
+                 bls_lane=None,
+                 tracer=None,
+                 metrics=None,
+                 flightrec=None,
+                 clock=time.monotonic):
+        """`cache` (serve/cache.VerifiedCache, shared with the
+        AdmissionQueue) enables the split-rung dispatch: each tick's
+        pending votes partition into a fresh stream (built signed) and a
+        pre-verified stream of cache hits (built unsigned, dispatched on
+        the verify-free sequence step); settle() inserts a signed
+        dispatch's digests iff its verify rejected zero lanes.
+        `bls_lane` (serve/bls_lane.BlsLane): closed classes are
+        aggregated, pairing-checked and fed down the same unsigned
+        path."""
+        self.driver = driver
+        self.batcher = batcher
+        self.pubkeys = pubkeys          # None = unsigned deployment
+        self.ladder = ladder
+        self.window_predictor = window_predictor
+        self.cache = cache
+        self.bls_lane = bls_lane
+        self.tracer = tracer
+        self.flightrec = flightrec
+        if getattr(driver, "sentinel", None) is not None:
+            # the tripwire keys a signed dispatch on its ladder rung
+            driver.sentinel.rungs = tuple(ladder.rungs)
+        # a monotonic tick id per staged build, threaded through
+        # dispatch and settle: the tracer's flow events and the flight
+        # recorder's tick_open / tick_close name one lifecycle
+        self.tick_seq = 0
+        if metrics is not None:
+            from agnes_tpu_torch.utils.metrics import (
+                SERVE_DISPATCH_WALL_S,
+                SERVE_SETTLE_WALL_S,
+            )
+            self._h_dispatch = metrics.histogram(SERVE_DISPATCH_WALL_S)
+            self._h_settle = metrics.histogram(SERVE_SETTLE_WALL_S)
+        else:
+            self._h_dispatch = self._h_settle = None
+        self._clock = clock
+        self._staged: List[_StagedBatch] = []
+        self._inflight: List[_Inflight] = []
+        self._entry_h: Optional[np.ndarray] = None
+        # slot -> value decode captured at each instance's first height
+        # advance: sync_device resets an advanced instance's slot map
+        # and the double buffer stages h+1 before h's decisions are
+        # collected, so the first (latched) decision decodes against the
+        # table of its own height (service.poll_decisions reads this)
+        self.first_advance_decode: dict = {}
+        # ... and the height the instance was on before that advance
+        self.first_advance_height: dict = {}
+        self.dispatched_batches = 0
+        self.dispatched_votes = 0
+        self.noop_ticks = 0
+        self.host_fallback_builds = 0
+        # builds / votes on the verify-free unsigned step because every
+        # record was a cache hit (dispatched_* count both streams)
+        self.preverified_builds = 0
+        self.preverified_votes = 0
+        # votes that entered through a cleared BLS class or its
+        # per-share fallback (a subset of preverified_votes)
+        self.bls_votes = 0
+        # signed builds above the ladder's top rung: prevented by the
+        # max_votes cap, kept as the regression alarm
+        self.offladder_builds = 0
+        # every (kind, P[, rung]) warmup() launched
+        self.warmed_keys: set = set()
+
+    def _span(self, name: str):
+        return (self.tracer.span(name) if self.tracer is not None
+                else contextlib.nullcontext())
+
+    def _event(self, kind: str, **fields) -> None:
+        if self.flightrec is not None:
+            self.flightrec.event(kind, **fields)
+
+    def _next_tick(self) -> int:
+        self.tick_seq += 1
+        return self.tick_seq
+
+    # -- window --------------------------------------------------------------
+
+    def _sync_window(self) -> np.ndarray:
+        """Adopt the target (base_round, heights) into the batcher;
+        returns the heights.  Predictor mode reads nothing from the
+        card; without a predictor the window is read back (a sync)."""
+        if self.window_predictor is not None:
+            base, hts = self.window_predictor()
+            base = np.asarray(base, np.int64)
+            hts = np.asarray(hts, np.int64)
+        else:
+            base = self.driver.tally.base_round.cpu().numpy().astype(
+                np.int64)
+            hts = self.driver.state.height.cpu().numpy().astype(np.int64)
+        for i in np.nonzero(hts > self.batcher.heights)[0]:
+            if int(i) not in self.first_advance_decode:
+                self.first_advance_decode[int(i)] = {
+                    s: self.batcher.decode_slot(int(i), s)
+                    for s in range(self.batcher.slots.n_slots)}
+                self.first_advance_height[int(i)] = \
+                    int(self.batcher.heights[i])
+        self.batcher.sync_device(base, hts)
+        return hts
+
+    def _entry_phase(self, heights: np.ndarray) -> VotePhase:
+        """The round-entry phase from host heights: constants made on
+        the card and the heights by a pinned non-blocking upload, so
+        building it never waits for the card."""
+        I, V = self.driver.I, self.driver.V
+        dev = self.driver.device
+        return VotePhase(
+            round=torch.zeros((I,), dtype=I32, device=dev),
+            typ=torch.zeros((I,), dtype=I32, device=dev),
+            slots=torch.full((I, V), NIL_ID, dtype=I32, device=dev),
+            mask=torch.zeros((I, V), dtype=torch.bool, device=dev),
+            height=self.batcher._to_device(
+                np.asarray(heights).astype(np.int32)))
+
+    # -- stages --------------------------------------------------------------
+
+    def stage(self, batch, sync: bool = True) -> bool:
+        """Densify into the staged FIFO (host work that overlaps the
+        step in flight).  Returns True when something was staged; a tick
+        whose traffic densifies to nothing is a counted no-op.  With
+        batch None, whatever the batcher holds pending is built (the
+        drain path's held-vote re-entry; `sync=False` when the caller
+        just synced).
+
+        Held votes that re-entered on this tick's sync build before the
+        fresh batch is added, and every build is capped at the top rung,
+        so no build exceeds a warmed shape."""
+        n_new = len(batch) if batch is not None else 0
+        if n_new == 0 and self.batcher.pending_votes == 0:
+            return False
+        with self._span("serve.densify"):
+            hts = (self._sync_window() if sync
+                   else self.batcher.heights.copy())
+            staged_any = False
+            if self.batcher.pending_votes:
+                staged_any |= self._build_all(hts, self._clock())
+            if n_new:
+                self.batcher.add_arrays(batch.instance, batch.validator,
+                                        batch.height, batch.round_,
+                                        batch.typ, batch.value,
+                                        batch.signatures,
+                                        verified=batch.verified,
+                                        digest=batch.digest)
+                staged_any |= self._build_all(hts, batch.t_first)
+        if not staged_any:
+            self.noop_ticks += 1
+        return staged_any
+
+    def _build_all(self, hts: np.ndarray, t_first: float) -> bool:
+        """Drain everything pending into staged builds of at most
+        `ladder.max_rung` votes each.  On a deployment with a cache or a
+        BLS lane the pending queue first splits by the verified flag:
+        fresh rows build signed, pre-verified rows build unsigned
+        afterwards."""
+        staged = False
+        # gate on the cache or the BLS lane: without either no admission
+        # path sets the verified column, and a stray verified row fed
+        # straight to the batcher must not ride an unsigned build
+        pre = (self.batcher.split_pending_verified()
+               if (self.cache is not None
+                   or self.bls_lane is not None) else [])
+        while self.batcher.pending_votes > 0:
+            before = self.batcher.pending_votes
+            staged |= self._build_one(hts, t_first)
+            if self.batcher.pending_votes >= before:  # defensive: a
+                break          # non-draining build must not spin
+        if pre:
+            # fail closed: if the fresh loop left unverified rows
+            # pending, building "pre-verified" from the queue would drain
+            # them unsigned — re-park the verified rows instead and build
+            # only when the queue holds nothing but them
+            leftover = self.batcher.pending_votes
+            self.batcher.adopt_pending(pre)
+            while leftover == 0 and self.batcher.pending_votes > 0:
+                before = self.batcher.pending_votes
+                staged |= self._build_one(hts, t_first,
+                                          preverified=True)
+                if self.batcher.pending_votes >= before:
+                    break
+        return staged
+
+    def _build_one(self, hts: np.ndarray, t_first: float,
+                   preverified: bool = False) -> bool:
+        """One capped build -> staged FIFO entry (False = densified to
+        nothing)."""
+        cap = self.ladder.max_rung
+        keys = None
+        if preverified:
+            return self._stage_preverified(hts, t_first, cap)
+        if self.pubkeys is not None:
+            phases, lanes = self.batcher.build_phases_device(
+                self.pubkeys, phase_offset=1, max_votes=cap)
+            if self.cache is not None and lanes is not None:
+                keys = self.batcher.last_build_keys
+        else:
+            phases, lanes = self.batcher.build_phases(max_votes=cap), None
+        if self.pubkeys is not None and lanes is None and phases:
+            # ineligible traffic (equivocation layers, mixed rounds, MSM
+            # mode): the batcher verified on the host instead
+            self.host_fallback_builds += 1
+        return self._stage_signed(phases, lanes, hts, t_first, keys)
+
+    def _stage_signed(self, phases, lanes, hts: np.ndarray,
+                      t_first: float, keys) -> bool:
+        """The staging tail: off-ladder alarm, tick lifecycle, entry
+        policy, staged-FIFO append.  `phases` is [(VotePhase,
+        n_votes)]; lanes may be None (host-verified/unsigned)."""
+        n_lanes = int(lanes.pub.shape[0]) if lanes is not None else None
+        if n_lanes is not None and n_lanes > self.ladder.max_rung:
+            self.offladder_builds += 1
+        if not phases:
+            return False
+        tick = self._next_tick()
+        rung = (self.ladder.rung_for(n_lanes)
+                if n_lanes is not None and n_lanes <= self.ladder.max_rung
+                else n_lanes)
+        self._event("tick_open", tick=tick,
+                    votes=sum(n for _, n in phases), rung=rung,
+                    lanes=n_lanes, signed=lanes is not None)
+        # signed builds always prepend the entry phase (their lanes were
+        # packed with phase_offset=1); unsigned builds when the window
+        # heights advanced past the last entry (or on the first
+        # dispatch).  An extra empty step mid-round changes nothing.
+        entry = (lanes is not None or self._entry_h is None
+                 or bool((hts > self._entry_h).any()))
+        if entry:
+            self._entry_h = hts.copy()
+        n_votes = sum(n for _, n in phases)
+        self._staged.append(_StagedBatch(
+            phases=[p for p, _ in phases], lanes=lanes, entry=entry,
+            entry_heights=hts if entry else None,
+            n_votes=n_votes, t_first=t_first, cache_keys=keys,
+            tick=tick))
+        return True
+
+    def _stage_preverified(self, hts: np.ndarray, t_first: float,
+                           cap: int) -> bool:
+        """Stage the pending pre-verified rows as unsigned builds of at
+        most two vote phases each (entry prepended on every chunk), so
+        a cache-hit burst over several rounds or layers never dispatches
+        a phase count outside the warmed {2, 3}.  Splitting a phase list
+        across dispatches is P sequential steps either way."""
+        groups = self.batcher.build_phases(max_votes=cap)
+        if not groups:
+            return False
+        for k in range(0, len(groups), 2):
+            chunk = groups[k:k + 2]
+            n_votes = sum(n for _, n in chunk)
+            self._entry_h = hts.copy()
+            tick = self._next_tick()
+            self._event("tick_open", tick=tick, votes=n_votes,
+                        rung=None, signed=False, preverified=True)
+            self._staged.append(_StagedBatch(
+                phases=[p for p, _ in chunk], lanes=None, entry=True,
+                entry_heights=hts, n_votes=n_votes, t_first=t_first,
+                preverified=True, tick=tick))
+        return True
+
+    # -- dispatch ------------------------------------------------------------
+
+    def dispatch_staged(self) -> int:
+        """Queue every staged build's fused step on the card (nothing
+        read back; back to back).  Returns the votes dispatched.  If a
+        dispatch raises, the failing build and every later one go back
+        on the staged FIFO before the exception propagates, so a caller
+        that retries loses no vote."""
+        staged, self._staged = self._staged, []
+        total = 0
+        for k, st in enumerate(staged):
+            try:
+                t0 = self._clock()
+                with self._span("serve.dispatch"):
+                    if self.tracer is not None:
+                        self.tracer.flow("tick", st.tick, "t")
+                    phases = st.phases
+                    if st.entry:
+                        phases = [self._entry_phase(st.entry_heights)] \
+                            + phases
+                    self.driver.step_async(phases, st.lanes,
+                                           tick=st.tick)
+            except BaseException:
+                self._staged = staged[k:] + self._staged
+                raise
+            if self._h_dispatch is not None:
+                self._h_dispatch.record(self._clock() - t0)
+            self._inflight.append(_Inflight(
+                t_first=st.t_first, n_votes=st.n_votes,
+                t_dispatch=self._clock(), cache_keys=st.cache_keys,
+                rejects=getattr(self.driver, "last_step_rejects", None),
+                tick=st.tick))
+            self.dispatched_batches += 1
+            self.dispatched_votes += st.n_votes
+            if st.preverified:
+                # counted at dispatch: a staged build can be requeued
+                self.preverified_builds += 1
+                self.preverified_votes += st.n_votes
+            total += st.n_votes
+        return total
+
+    def stage_bls(self, classes) -> bool:
+        """Aggregate and pairing-check the closed BLS classes
+        (BlsLane.clear_classes), then feed every surviving row into the
+        batcher as pre-verified votes and build them through the same
+        unsigned path as cache hits.  Forged shares die inside the
+        lane (counted there)."""
+        if not classes or self.bls_lane is None:
+            return False
+        with self._span("serve.bls_clear"):
+            rows = self.bls_lane.clear_classes(classes)
+        if rows is None:
+            self.noop_ticks += 1
+            return False
+        n = len(rows["instance"])
+        with self._span("serve.densify"):
+            hts = self._sync_window()
+            self.batcher.add_class_votes(
+                rows["instance"], rows["validator"], rows["height"],
+                rows["round_"], rows["typ"], rows["value"])
+            self.bls_votes += n
+            staged = self._build_all(
+                hts, rows["t_first"] if rows["t_first"] is not None
+                else self._clock())
+        if not staged:
+            self.noop_ticks += 1
+        return staged
+
+    def pump(self, batch, bls_classes=None) -> Tuple[int, bool]:
+        """One tick: dispatch what was staged, then densify `batch` (and
+        any closed BLS classes) while the card runs.  Returns (votes
+        dispatched, staged?)."""
+        dispatched = self.dispatch_staged()
+        staged = self.stage(batch)
+        if bls_classes:
+            staged |= self.stage_bls(bls_classes)
+        return dispatched, staged
+
+    # -- settle --------------------------------------------------------------
+
+    def settle(self) -> List[_Inflight]:
+        """Collect every queued message batch (the one sync point) and
+        hand back the in-flight metadata for end-to-end latency.
+
+        Dedup-cache insertion happens here, after collect(): a signed
+        dispatch's digests become entries iff its verify rejected zero
+        lanes; a dispatch with any rejected lane caches nothing, and one
+        without a verdict is skipped (fail closed)."""
+        t0 = self._clock()
+        with self._span("serve.collect"):
+            self.driver.collect()
+        if self._h_settle is not None:
+            self._h_settle.record(self._clock() - t0)
+        done, self._inflight = self._inflight, []
+        now = self._clock()
+        for b in done:
+            if self.tracer is not None:
+                self.tracer.flow("tick", b.tick, "f")   # lifecycle end
+            self._event("tick_close", tick=b.tick, votes=b.n_votes,
+                        e2e_s=round(now - b.t_first, 6))
+        if self.cache is not None:
+            for b in done:
+                if b.cache_keys is None:
+                    continue
+                if b.rejects is None:
+                    self.cache.note_unverified_batch()
+                    continue
+                if int(torch.as_tensor(b.rejects).sum()) == 0:
+                    dig, inst, heights = b.cache_keys
+                    self.cache.insert(dig, inst, heights)
+                else:
+                    self.cache.note_rejected_batch()
+        return done
+
+    # -- warmup --------------------------------------------------------------
+
+    def warmup(self, n_phases=(2, 3), arm: bool = True) -> int:
+        """Launch every step shape the steady state dispatches once, on
+        all-padding inputs against `driver.state_copies()` (the live
+        state is untouched): each signed (P, rung) — P = 2 (entry + one
+        class, a deadline-closed batch) and P = 3 (entry + both) by
+        default — and, with a cache or a BLS lane, the unsigned sequence
+        per P; with a BLS lane every `bls_aggregate` rung and, when it
+        pairs on the card, every pairing class rung.  Records
+        `warmed_keys`.  With a retrace sentinel on the driver every
+        launch is observed into the expected set, and `arm` closes it:
+        a later dispatch at an unwarmed shape raises.  Returns the
+        shapes warmed."""
+        if self.pubkeys is None and self.bls_lane is None:
+            return 0
+        if isinstance(n_phases, int):
+            n_phases = (n_phases,)
+        d = self.driver
+        dev = d.device
+        zero_hts = np.zeros(d.I, np.int64)
+        warmed = 0
+        for P in n_phases:
+            phases_st = stack_tuples([self._entry_phase(zero_hts)] * P)
+            exts_st = stack_tuples([d.ext()] * P)
+            if self.pubkeys is not None:
+                for r in self.ladder.rungs:
+                    lanes = SignedLanes(
+                        pub=torch.zeros((r, 32), dtype=I32, device=dev),
+                        sig=torch.zeros((r, 64), dtype=I32, device=dev),
+                        blocks=torch.zeros((r, 1, 32), dtype=I32,
+                                           device=dev),
+                        phase_idx=torch.full((r,), P, dtype=I32,
+                                             device=dev),  # dropped
+                        inst=torch.zeros((r,), dtype=I32, device=dev),
+                        val=torch.zeros((r,), dtype=I32, device=dev),
+                        real=torch.zeros((r,), dtype=torch.bool,
+                                         device=dev))
+                    d._signed(phases_st, exts_st, lanes, *d.state_copies())
+                    self.warmed_keys.add(("signed", P, r))
+                    warmed += 1
+            if self.cache is not None or self.bls_lane is not None:
+                # pre-verified builds (cache hits and cleared BLS rows)
+                # ride the unsigned sequence: one shape per P
+                d._unsigned(phases_st, exts_st, *d.state_copies())
+                self.warmed_keys.add(("unsigned", P))
+                warmed += 1
+        if self.bls_lane is not None and self.ladder.bls_rungs:
+            from agnes_tpu_torch.crypto import bls as BLS
+
+            nw = self.bls_lane.registry.n_windows
+            for r in self.ladder.bls_rungs:
+                args = (torch.zeros((r, 2, BLS.NLIMBS), dtype=I32,
+                                    device=dev),
+                        torch.zeros((r, 4, BLS.NLIMBS), dtype=I32,
+                                    device=dev),
+                        torch.zeros((r, BLS.W_LIMBS), dtype=I32,
+                                    device=dev))
+                d._observe("bls_aggregate", args, statics=(nw,))
+                BLS.bls_aggregate(*args, n_windows=nw)
+                self.warmed_keys.add(("bls_aggregate", r))
+                warmed += 1
+        if (self.bls_lane is not None and self.ladder.bls_class_rungs
+                and self.bls_lane.uses_device_pairing):
+            from agnes_tpu_torch.crypto import bls as BLS
+            from agnes_tpu_torch.crypto import bls_pairing as BP
+
+            for r in self.ladder.bls_class_rungs:
+                args = (torch.zeros((r, 2, 3, BLS.NLIMBS), dtype=I32,
+                                    device=dev),
+                        torch.zeros((r, 2, 3, 2, BLS.NLIMBS), dtype=I32,
+                                    device=dev))
+                d._observe("bls_pairing_product", args)
+                BP.bls_pairing_product(*args)
+                self.warmed_keys.add(("bls_pairing_product", r))
+                warmed += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if arm and getattr(d, "sentinel", None) is not None:
+            d.sentinel.arm()
+        return warmed

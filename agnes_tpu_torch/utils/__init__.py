@@ -6,6 +6,11 @@
   tracing.py      host spans (chrome-trace JSON, bounded ring, stable
                   thread ids, tick flow events) + `span`, which names a
                   region for torch.profiler and as an NVTX range.
+  budget.py       the verify planner (lane chunks from the card's memory).
+  metrics.py      counters, gauges, log-bucket latency histograms and the
+                  serve plane's metric names.
+  flightrec.py    the flight recorder's event ring and NDJSON heartbeat.
+  metrics_http.py the Prometheus `/metrics` endpoint over a registry.
 """
 
 from agnes_tpu_torch.utils.checkpoint import (  # noqa: F401

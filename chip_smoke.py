@@ -138,9 +138,48 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      forger, with one verify launch per logged device-verify batch; its
      time is logged.  The stages run in
      `utils.tracing.span`s of a `Tracer` whose chrome trace must parse
-     and hold every stage (`checkpoint_phase`).
+     and hold every stage (`checkpoint_phase`);
+  8. the serve plane (`serve/`), three parts.  (a) Three signed heights
+     at I = 1,024 x V = 1,000 (validator 7 forged in both classes)
+     served by `VoteService(driver, batcher, pubkeys, target_votes=
+     2 x I x V, max_delay_s=0, window_predictor=<round 0, height h>)`
+     on the ladder `ShapeLadder.plan(I, V)` at the card's memory:
+     `warmup(n_phases=(2, 3))` armed first (the retrace tripwire on the
+     driver), then per height `submit` and `pump` under
+     `torch.cuda.set_sync_debug_mode("error")`, then `drain()`.  Every
+     instance must decide at every height with 2 x I rejected lanes a
+     height; the state, tally and decisions must equal the same three
+     heights through `build_phases_device` + `step_seq_signed` on a
+     second driver, leaf for leaf; the verify kernel must be launched
+     once per warmed signed shape and once per signed dispatch, and its
+     verdicts at the last served height's own launch shape (2 x I x V
+     lanes, none of them padding) must equal plain's on a sample of the
+     lanes, every forged one among them.  It logs the served votes/s,
+     per tick the host densify and the step's device time (CUDA events),
+     the share of the steps' device time spent while the host densified
+     the next height, the warmup wall with each warmed shape's host
+     launch and device time, the device peak against the top rung's
+     plan, and the host RSS.  Then a fresh service serves heights 0 and
+     1 again, and the tick that dispatches height 0 and densifies height
+     1 runs under `torch.profiler`: its chrome trace (written to
+     `chiprun_out/serve_tick_trace.json`) gives the card's busy share
+     over the step and over the tick, the gaps between the step's
+     kernels, and the host's CUDA runtime calls while it launched the
+     step; where the profiler records no device activity these read
+     "not measured" (`serve_signed_phase`, `trace_tick`).  (b) The dedup cache at I = 64 x
+     V = 1,000: two honest heights, each submitted again after its first
+     copy settles, beside a service without the cache; the copies must
+     be cache hits that ride the unsigned sequence with no verify launch
+     and leave decisions, state and tally as without the cache, and a
+     batch with a forged lane must cache nothing (`serve_dedup_phase`).
+     (c) Phase 6's lane, registry and wire through a BLS-only
+     `VoteService(..., bls_lane=...)` with `submit_bls`, warmup armed,
+     the forged 4-signer class beside the 8 honest ones: the decisions
+     must equal phase 6's and the forged share be dropped; the field
+     kernels' launches are counted (`serve_bls_phase`).
 
-Prints a JSON line of kernel numbers (rows 4-5 with every timed shape),
+Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
+rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -173,6 +212,9 @@ FORGED = 7
 VALUE = 7
 N_RANDOM = 4096
 EQUIVOCATOR = 9                    # phase 7: signs value 8 as well
+SERVE_HEIGHTS = 3                  # phase 8: signed heights served
+I_DEDUP = 64                       # phase 8: the dedup serve's instances
+N_SERVE_SAMPLE = 16_384            # phase 8: served lanes held against plain
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -458,7 +500,8 @@ def bls_lane_phase() -> dict:
     forged case follows: a class of 4 signers with one forged share —
     its device pairing fails, the host fallback rejects exactly that
     share, and the other 3 rows still come back.  Returns the kernel
-    launches of the main run, in total and per call."""
+    launches of the main run, in total and per call, and the fixture
+    phase 8 serves again (registry, stake, both wires, the decisions)."""
     import numpy as np
     import torch
 
@@ -647,11 +690,15 @@ def bls_lane_phase() -> dict:
     log(f"[bls forged] 4 signers, 1 forged: rejected {f_rej}, rows "
         f"{f_rows['validator'].tolist()}, calls " + ", ".join(
             f"{c['entry']} {c['ms']:.1f} ms" for c in f_calls))
+    fix = {"reg": reg, "powers": powers, "wire": wire, "f_wire": f_wire,
+           "stats": {f: getattr(drv.stats, f).copy()
+                     for f in ("decided", "decision_value",
+                               "decision_round")}}
     return {n: {"total": launches[n],
                 "bls_aggregate": per[n]["bls_aggregate"][0],
                 "bls_pairing_product": per[n]["bls_pairing_product"][0],
                 "rows": hists[n]}
-            for n in launches}
+            for n in launches}, fix
 
 
 def chain_phase(bound) -> dict:
@@ -1179,6 +1226,649 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
         f"verify launches; verify_evidence on all of them {t_check:.3f} s")
     log("[checkpoint] spans (ms): " + ", ".join(
         f"{n} {v:.1f}" for n, v in span_ms.items()))
+    return launches
+
+
+def _host_rss_gib() -> float:
+    """The resident set of this process now, in GiB (/proc/self/status;
+    the process's lifetime peak is phase 3n's, so a phase reads its own
+    use as the change of this)."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) / 2**20
+    return -1.0
+
+
+def _union(ivs) -> list:
+    """Merge [(start, end)] intervals (sorted by start) into disjoint
+    ones."""
+    out = []
+    for a, b in sorted(ivs):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged, lo: float, hi: float) -> float:
+    """Length of [lo, hi] covered by disjoint `merged` intervals."""
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in merged)
+
+
+def trace_tick(path: str) -> dict:
+    """Read one profiled serve tick's chrome trace (torch.profiler):
+    the ranges `serve.tick`, `serve.dispatch` (the step's host launch)
+    and `serve.densify`, the host's CUDA runtime calls inside the
+    dispatch, and the card's activity (kernels, copies, sets): the
+    step's operations are those the dispatch's runtime calls launched
+    (their correlation ids), the tick's all of them.  Times in ms.  With
+    no device activity in the trace the device numbers are None (not
+    measured)."""
+    import statistics
+
+    with open(path) as f:
+        evs = json.load(f)
+    evs = evs["traceEvents"] if isinstance(evs, dict) else evs
+    evs = [e for e in evs if e.get("ph") == "X"]
+    rng = {}
+    for e in evs:
+        if e.get("cat") == "user_annotation" and e.get("name") in (
+                "serve.tick", "serve.dispatch", "serve.densify"):
+            rng.setdefault(e["name"], (e["ts"], e["ts"] + e["dur"]))
+    missing = {"serve.tick", "serve.dispatch", "serve.densify"} - set(rng)
+    if missing:
+        raise AssertionError(f"profiled tick lacks the ranges {missing}")
+    d0, d1 = rng["serve.dispatch"]
+    s0, s1 = rng["serve.densify"]
+    t0, t1 = rng["serve.tick"]
+    runtime, corr = {}, set()
+    for e in evs:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and d0 <= e["ts"] <= d1:
+            n, tot, mx = runtime.get(e["name"], (0, 0.0, 0.0))
+            runtime[e["name"]] = (n + 1, tot + e["dur"], max(mx, e["dur"]))
+            if "correlation" in e.get("args", {}):
+                corr.add(e["args"]["correlation"])
+    dev = [e for e in evs
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    step = [(e["ts"], e["ts"] + e["dur"]) for e in dev
+            if e.get("args", {}).get("correlation") in corr]
+    out = {"dispatch_ms": (d1 - d0) / 1e3, "densify_ms": (s1 - s0) / 1e3,
+           "tick_ms": (t1 - t0) / 1e3, "device_ops": len(dev),
+           "step_ops": len(step),
+           "runtime": {k: {"calls": n, "ms": tot / 1e3, "max_ms": mx / 1e3}
+                       for k, (n, tot, mx) in sorted(
+                           runtime.items(), key=lambda kv: -kv[1][1])[:6]}}
+    if not step:
+        return dict(out, step_span_ms=None, step_busy_share=None,
+                    gaps=None, tick_busy_share=None,
+                    busy_in_densify_ms=None, busy_in_dispatch_ms=None,
+                    step_end_after_dispatch_ms=None,
+                    first_op_after_dispatch_start_ms=None)
+    merged = _union(step)
+    lo, hi = merged[0][0], merged[-1][1]
+    gaps = [b[0] - a[1] for a, b in zip(merged, merged[1:])]
+    every = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    end = max(t1, hi)
+    return dict(
+        out, step_span_ms=(hi - lo) / 1e3,
+        step_busy_share=_covered(merged, lo, hi) / (hi - lo),
+        gaps=({"n": len(gaps), "median_us": statistics.median(gaps),
+               "max_us": max(gaps), "sum_ms": sum(gaps) / 1e3,
+               "over_100us": sum(1 for g in gaps if g > 100)}
+              if gaps else None),
+        tick_busy_share=_covered(every, t0, end) / (end - t0),
+        busy_in_densify_ms=_covered(every, s0, s1) / 1e3,
+        busy_in_dispatch_ms=_covered(every, d0, d1) / 1e3,
+        step_end_after_dispatch_ms=(hi - d1) / 1e3,
+        first_op_after_dispatch_start_ms=(lo - d0) / 1e3)
+
+
+def serve_signed_phase(seeds, pubkeys, classes) -> dict:
+    """Phase 8, part 1: three signed heights served through VoteService
+    at I = 1,024 x V = 1,000 (validator 7 forged in both classes), warmup
+    armed, the pump loop under sync debug mode "error", held against the
+    offline path on a second driver; see the module docstring.  Returns
+    the verify kernel's numbers for its JSON line, and the three heights'
+    forged and honest signatures."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.crypto import ed25519_ref as ref
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import ShapeLadder, VoteService
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.flightrec import FlightRecorder
+    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
+
+    I, Vn = I_SIGNED, V_SIGNED
+    dev = torch.device(DEVICE)
+
+    # -- fixture (outside the timed window): both classes of three
+    # heights, forged and honest signatures, and their wire --
+    t0 = time.perf_counter()
+    sigs, honest = {}, {}
+    for h in range(SERVE_HEIGHTS):
+        for typ in classes:
+            s = fx.sign_class(seeds, h, typ, VALUE, forge_validator=FORGED)
+            msg = vote_messages_np(*[np.full(1, x, np.int64)
+                                     for x in (h, 0, typ, VALUE)])[0]
+            good = s.copy()
+            good[FORGED] = np.frombuffer(ref.sign(seeds[FORGED],
+                                                  msg.tobytes()), np.uint8)
+            sigs[h, typ], honest[h, typ] = s, good
+    cols = {(h, typ): fx.full_mesh_cols(I, Vn, seeds, h, typ, VALUE,
+                                        sigs=sigs[h, typ])
+            for h in range(SERVE_HEIGHTS) for typ in classes}
+    wire = [b"".join(pack_wire_votes(*cols[h, typ]) for typ in classes)
+            for h in range(SERVE_HEIGHTS)]
+    log(f"[serve fixture] {SERVE_HEIGHTS} heights x 2 classes, "
+        f"{len(wire[0]) * SERVE_HEIGHTS / 2**30:.2f} GiB of wire: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    box = {"h": 0}
+    drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                       audit=True, device=dev)
+    bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    flight = FlightRecorder()
+    svc = VoteService(
+        drv, bat, pubkeys, target_votes=2 * I * Vn, max_delay_s=0.0,
+        window_predictor=lambda: (np.zeros(I, np.int64),
+                                  np.full(I, box["h"], np.int64)),
+        flightrec=flight)
+    ladder = svc.ladder
+    plan = budget.plan_lane_verify(ladder.max_rung,
+                                   hbm_bytes=budget.device_hbm_bytes(dev))
+    # each warmed signed shape's host launch (host clock) and device
+    # time (CUDA events): the launch at the smallest rung is the host's
+    # own cost of queueing the step's operations
+    warm_iv = []
+    signed = drv._signed
+
+    def timed_signed(phases_st, *a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t = time.perf_counter()
+        ev[0].record()
+        out = signed(phases_st, *a, **k)
+        ev[1].record()
+        warm_iv.append((int(phases_st.mask.shape[0]),
+                        int(a[1].pub.shape[0]), time.perf_counter() - t, ev))
+        return out
+
+    drv._signed = timed_signed
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    warmed = svc.pipeline.warmup(n_phases=(2, 3))
+    t_warm = time.perf_counter() - t0
+    warm_launches = V.LAUNCHES
+    del drv._signed
+    warm_ms = {(P, r): (host * 1e3, ev[0].elapsed_time(ev[1]))
+               for P, r, host, ev in warm_iv}
+    n_signed_shapes = sum(1 for k in svc.pipeline.warmed_keys
+                          if k[0] == "signed")
+
+    # per tick: host densify (perf_counter around stage), the host's
+    # launch of the step (perf_counter around step_async) and the step's
+    # device interval (CUDA events around it); one event anchors device
+    # times to the host clock
+    stage, dispatch = svc.pipeline.stage, drv.step_async
+    dens, steps, launch = [], [], []
+    kept = {}
+
+    def timed_stage(*a, **k):
+        t = time.perf_counter()
+        out = stage(*a, **k)
+        dens.append((t, time.perf_counter()))
+        return out
+
+    def timed_dispatch(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t = time.perf_counter()
+        ev[0].record()
+        out = dispatch(*a, **k)
+        ev[1].record()
+        launch.append((t, time.perf_counter()))
+        steps.append(ev)
+        if len(steps) == SERVE_HEIGHTS:
+            # the last height's lanes, at the served launch shape (kept
+            # from the last dispatch only: no extra height stays resident)
+            kept["lanes"] = a[1]
+        return out
+
+    svc.pipeline.stage, drv.step_async = timed_stage, timed_dispatch
+    torch.cuda.synchronize()
+    anchor = torch.cuda.Event(enable_timing=True)
+    anchor.record()
+    torch.cuda.synchronize()
+    t_anchor = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = _host_rss_gib()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for h in range(SERVE_HEIGHTS):
+            box["h"] = h
+            res = svc.submit(wire[h])
+            if res.accepted != 2 * I * Vn:
+                raise AssertionError(f"height {h} not admitted whole: {res}")
+            svc.pump()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t_pumped = time.perf_counter()
+    rep = svc.drain()
+    wall = time.perf_counter() - t0
+    serve_launches = V.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    rss1 = _host_rss_gib()
+    svc.pipeline.stage, drv.step_async = stage, dispatch
+    step_iv = [(t_anchor + anchor.elapsed_time(a) / 1e3,
+                t_anchor + anchor.elapsed_time(b) / 1e3) for a, b in steps]
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    dens_ms = [(b - a) * 1e3 for a, b in dens]
+    # the overlap: device time of step k spent while the host densified
+    # the next height (densify k+1 runs right after dispatch k)
+    # (the last height's step runs in drain, with no height behind it)
+    paired = list(zip(step_iv[:SERVE_HEIGHTS - 1], dens[1:SERVE_HEIGHTS]))
+    overlap = sum(max(0.0, min(s1, d1) - max(s0, d0))
+                  for (s0, s1), (d0, d1) in paired)
+    overlap_share = overlap / max(1e-9, sum(s1 - s0
+                                            for (s0, s1), _ in paired))
+    # ... and spent while the host was still launching that step
+    in_launch = sum(max(0.0, min(s1, l1) - max(s0, l0))
+                    for (s0, s1), (l0, l1) in zip(step_iv, launch))
+    launch_share = in_launch / max(1e-9, sum(s1 - s0 for s0, s1 in step_iv))
+    launch_ms = [(b - a) * 1e3 for a, b in launch]
+
+    # -- the offline path on a second driver, the same three heights --
+    off = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    obat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    t1 = time.perf_counter()
+    for h in range(SERVE_HEIGHTS):
+        obat.sync_device(np.zeros(I, np.int64), np.full(I, h, np.int64))
+        for typ in classes:
+            obat.add_arrays(*cols[h, typ])
+        phases, lanes = obat.build_phases_device(pubkeys, phase_offset=1)
+        off.step_seq_signed([off.empty_phase()] + [p for p, _ in phases],
+                            lanes)
+        del phases, lanes
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t1
+    same = all(torch.equal(a, b) for a, b in zip(drv.state, off.state)) \
+        and all(torch.equal(a, b) for a, b in zip(drv.tally, off.tally))
+    n_votes = SERVE_HEIGHTS * 2 * I * Vn
+    sig_dispatches = sum(1 for e in flight.tail(kind="dispatch")
+                         if e.get("lanes") is not None)
+    checks = {
+        "every instance decided at every height":
+            rep["decisions_total"] == SERVE_HEIGHTS * I
+            and bool((drv.state.height == SERVE_HEIGHTS).all()),
+        "2,048 rejected lanes a height":
+            rep["rejected_signature_device"] == SERVE_HEIGHTS * 2 * I,
+        "state and tally == offline, leaf for leaf": same,
+        "decisions == offline": all(
+            np.array_equal(getattr(drv.stats, f), getattr(off.stats, f))
+            for f in ("decided", "decision_value", "decision_round"))
+        and off.stats.decisions_total == rep["decisions_total"]
+        and off.rejected_signature_device
+        == rep["rejected_signature_device"],
+        f"decided value {VALUE}": {x.value_id for x in
+                                   rep["final_decisions"]} == {VALUE},
+        "verify launches == warmed signed shapes + signed dispatches":
+            warm_launches == n_signed_shapes
+            and serve_launches == sig_dispatches == SERVE_HEIGHTS,
+        "no off-ladder build, no retrace":
+            rep["offladder_builds"] == 0
+            and drv.sentinel.metrics.counters.get(RETRACE_UNEXPECTED, 0)
+            == 0,
+        "one dispatch a height": rep["dispatched_batches"] == SERVE_HEIGHTS,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"signed serve failed: {checks}; report "
+                             f"{ {k: rep[k] for k in ('decisions_total', 'rejected_signature_device', 'dispatched_batches', 'offladder_builds')} }; "
+                             f"launches warm {warm_launches} / "
+                             f"{n_signed_shapes}, serve {serve_launches} / "
+                             f"{sig_dispatches}")
+    # the verify kernel at the served launch shape against plain: the
+    # last height's lanes (exact count, none padding) through the
+    # prologue and the kernel, a sample of them through plain
+    lanes = kept.pop("lanes")
+    n_served = int(lanes.pub.shape[0])
+    val = lanes.val.cpu().numpy()
+    exact = n_served == 2 * I * Vn and bool(lanes.real.all())
+    args, ok_s = V.prologue(lanes.pub, lanes.sig, lanes.blocks)
+    got = V.verify_signed5(*args)
+    rng = np.random.RandomState(SEED + 8)
+    forged = np.nonzero(val == FORGED)[0]
+    pick = rng.choice(np.nonzero(val != FORGED)[0],
+                      N_SERVE_SAMPLE - len(forged), replace=False)
+    idx = torch.from_numpy(np.sort(np.concatenate([pick, forged]))).to(dev)
+    sub = [a[..., idx].contiguous() for a in args]
+    plain = V.verify_plain(*sub)
+    mism, max_err = compare(got[idx], plain)
+    ok = ((got[idx] > 0) & ok_s[idx]).cpu().numpy()
+    is_forged = val[idx.cpu().numpy()] == FORGED
+    if not exact or mism or ok[is_forged].any() or not ok[~is_forged].all():
+        raise AssertionError(
+            f"served launch shape: {n_served} lanes (exact, no padding: "
+            f"{exact}); kernel != plain on {mism} of {len(idx)} sampled "
+            f"lanes, or a forged lane passed / an honest lane failed")
+    del lanes, args, ok_s, got, sub, plain
+    log(f"[serve] verify kernel at the served launch shape ({n_served} "
+        f"lanes, none padding) == plain on a sample of {len(idx)} lanes "
+        f"({int(is_forged.sum())} forged, all rejected)")
+
+    lane_bytes = (budget.SIG_LANE_BYTES + budget.PUB_LANE_BYTES
+                  + budget.BLOCK_LANE_BYTES)
+    log(f"[serve] I={I} V={Vn} {ladder.describe()}; warmup {warmed} shapes "
+        f"({n_signed_shapes} signed, {warm_launches} verify launches) "
+        f"{t_warm:.3f} s")
+    log("[serve] warmed signed shapes, host launch ms / device ms: " +
+        ", ".join(f"P={P} {r}: {h:.1f} / {d:.1f}"
+                  for (P, r), (h, d) in sorted(warm_ms.items())))
+    log(f"[serve] {SERVE_HEIGHTS} heights, {n_votes} votes: wall "
+        f"{wall:.3f} s (submit + pump loop {t_pumped - t0:.3f} s, drain "
+        f"{t0 + wall - t_pumped:.3f} s) served votes/s={n_votes / wall:.0f};"
+        f" offline path on the same heights {t_off:.3f} s "
+        f"({n_votes / t_off:.0f}/s); verify launches {serve_launches}, "
+        f"rejected {rep['rejected_signature_device']}")
+    log(f"[serve] per tick: densify ms " + ", ".join(f"{x:.1f}"
+                                                      for x in dens_ms)
+        + "; step ms (CUDA events) " + ", ".join(f"{x:.1f}"
+                                                 for x in step_ms)
+        + "; the host's launch of each step ms " + ", ".join(
+            f"{x:.1f}" for x in launch_ms)
+        + f"; device time of the first {SERVE_HEIGHTS - 1} steps spent "
+        f"while the host densified the next height {overlap * 1e3:.1f} ms "
+        f"(overlap share {overlap_share:.3f}); share of all steps' device "
+        f"time spent while the host was still launching them "
+        f"{launch_share:.3f}")
+    log(f"[serve] device peak {peak / 2**30:.3f} GiB (allocated before "
+        f"{before / 2**30:.3f} GiB; peak - before {(peak - before) / 2**30:.3f}"
+        f" GiB) against the top rung's plan {plan.peak_bytes / 2**30:.3f} "
+        f"GiB ({plan.describe()}; one more height's resident lanes "
+        f"{ladder.max_rung * lane_bytes / 2**30:.3f} GiB); host RSS "
+        f"{rss0:.2f} GiB before the loop, {rss1:.2f} GiB after drain "
+        f"(the three heights' wire and columns already resident); card "
+        f"{smi('name,power.limit')}")
+    log(f"[serve] no sync point between the first submit and drain "
+        f"(sync debug mode \"error\"); flight events {flight.counts()}")
+    tick = profiled_tick(wire, pubkeys)
+    return {"launches_serve_phase": warm_launches + serve_launches,
+            "launches_serve_warmup": warm_launches,
+            "launches_serve_dispatch": serve_launches,
+            "serve_votes_per_s": n_votes / wall,
+            "serve_overlap_share": overlap_share,
+            "serve_step_in_launch_share": launch_share,
+            "serve_peak_bytes": peak - before,
+            "serve_plan_peak_bytes": plan.peak_bytes,
+            "serve_lanes": n_served,
+            "serve_sample_mismatches": mism,
+            "serve_sample_max_abs_err": max_err,
+            "serve_tick_step_busy_share": tick["step_busy_share"],
+            "serve_tick_busy_share": tick["tick_busy_share"],
+            "serve_tick_launch_ms": tick["dispatch_ms"],
+            "serve_tick_launch_call_ms": tick["runtime"].get(
+                "cudaLaunchKernel", {}).get("ms")}, sigs, honest
+
+
+def profiled_tick(wire, pubkeys) -> dict:
+    """Phase 8, part 1's trace: a fresh service at I = 1,024 x V = 1,000
+    stages height 0, then the tick that dispatches height 0's step and
+    densifies height 1 runs under torch.profiler (CPU and CUDA
+    activity); drain must then decide both heights.  The trace goes to
+    `chiprun_out/serve_tick_trace.json` and is read by `trace_tick`."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import VoteService
+
+    I, Vn = I_SIGNED, V_SIGNED
+    box = {"h": 0}
+    drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                       device=DEVICE)
+    svc = VoteService(
+        drv, VoteBatcher(I, Vn, n_slots=4, device=DEVICE), pubkeys,
+        target_votes=2 * I * Vn, max_delay_s=0.0,
+        window_predictor=lambda: (np.zeros(I, np.int64),
+                                  np.full(I, box["h"], np.int64)))
+    stage, dispatch = svc.pipeline.stage, drv.step_async
+
+    def ranged(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    svc.pipeline.stage = ranged("serve.densify", stage)
+    drv.step_async = ranged("serve.dispatch", dispatch)
+    svc.submit(wire[0])
+    svc.pump()                                   # stages height 0
+    box["h"] = 1
+    svc.submit(wire[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("serve.tick"):
+            svc.pump()               # dispatch height 0, densify height 1
+        torch.cuda.synchronize()
+    rep = svc.drain()
+    if rep["decisions_total"] != 2 * I or rep["dispatched_batches"] != 2:
+        raise AssertionError(f"profiled service: {rep['decisions_total']} "
+                             f"decisions, {rep['dispatched_batches']} "
+                             f"dispatches")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "serve_tick_trace.json")
+    prof.export_chrome_trace(path)
+    t = trace_tick(path)
+    del svc, drv, prof
+    rt = ", ".join(f"{k} {v['calls']} calls {v['ms']:.1f} ms (max "
+                   f"{v['max_ms']:.3f})" for k, v in t["runtime"].items())
+    head = (f"[serve trace] one tick (torch.profiler, {path}): tick "
+            f"{t['tick_ms']:.1f} ms, the step's host launch "
+            f"{t['dispatch_ms']:.1f} ms, densify {t['densify_ms']:.1f} ms; "
+            f"{t['device_ops']} device operations, {t['step_ops']} of them "
+            f"the step's")
+    if t["step_busy_share"] is None:
+        log(head + "; the profiler recorded no device activity: busy "
+            "shares and gaps not measured; runtime calls in the launch: "
+            + rt)
+        return t
+    g = t["gaps"] or {}
+    log(head + f"; the step's device span {t['step_span_ms']:.1f} ms "
+        f"(its first operation began {t['first_op_after_dispatch_start_ms']:.1f}"
+        f" ms after the launch began, its last ended "
+        f"{t['step_end_after_dispatch_ms']:+.1f} ms from the launch's "
+        f"return), busy {t['step_busy_share']:.4f} of it; "
+        f"gaps between its operations: {g.get('n')} (median "
+        f"{g.get('median_us', 0):.1f} us, max {g.get('max_us', 0):.1f} us, "
+        f"{g.get('over_100us')} over 100 us, {g.get('sum_ms', 0):.1f} ms in "
+        f"all); card busy {t['tick_busy_share']:.4f} of the tick, "
+        f"{t['busy_in_dispatch_ms']:.1f} ms during the launch and "
+        f"{t['busy_in_densify_ms']:.1f} ms during the densify; runtime "
+        f"calls in the launch: " + rt + f"; card {smi('name,power.limit')}")
+    return t
+
+
+def serve_dedup_phase(seeds, pubkeys, classes, sigs, honest) -> int:
+    """Phase 8, part 2: the dedup cache at I = 64 x V = 1,000.  Each honest
+    height is served, and its wire submitted again after its first copy
+    settles; a service without the cache gets the same submits.  The
+    copies must ride the pre-verified stream with no verify launch and
+    leave the decisions as they are without the cache; a batch with a
+    forged lane must cache nothing.  Returns the verify launches of the
+    cached run."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import VoteService
+    from agnes_tpu_torch.serve.queue import _record_digests
+
+    I, Vn = I_DEDUP, V_SIGNED
+    dev = torch.device(DEVICE)
+    heights = SERVE_HEIGHTS - 1
+    wire = [b"".join(pack_wire_votes(*fx.full_mesh_cols(
+        I, Vn, seeds, h, typ, VALUE, sigs=honest[h, typ]))
+        for typ in classes) for h in range(heights)]
+    runs = {}
+    for cached in (True, False):
+        box = {"h": 0}
+        drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                           device=dev)
+        svc = VoteService(
+            drv, VoteBatcher(I, Vn, n_slots=4, device=dev), pubkeys,
+            target_votes=2 * I * Vn, max_delay_s=0.0,
+            dedup_cache=cached or None,
+            window_predictor=lambda: (np.zeros(I, np.int64),
+                                      np.full(I, box["h"], np.int64)))
+        torch.cuda.synchronize()
+        V.LAUNCHES = 0
+        t0 = time.perf_counter()
+        hits = 0
+        for h in range(heights):
+            box["h"] = h
+            for _copy in range(2):
+                hits += svc.submit(wire[h]).pre_verified
+                svc.pump()
+                svc.pump()
+                svc.poll_decisions()
+        torch.cuda.synchronize()
+        runs[cached] = dict(svc=svc, drv=drv, hits=hits,
+                            launches=V.LAUNCHES,
+                            wall=time.perf_counter() - t0)
+    c, p = runs[True], runs[False]
+    svc, drv = c["svc"], c["drv"]
+    copies = heights * 2 * I * Vn
+    same = all(torch.equal(a, b) for a, b in zip(drv.state, p["drv"].state)) \
+        and all(torch.equal(a, b) for a, b in zip(drv.tally, p["drv"].tally))
+    # a batch with a forged lane: it settles, and caches nothing
+    box = {"h": heights}
+    svc.pipeline.window_predictor = lambda: (
+        np.zeros(I, np.int64), np.full(I, box["h"], np.int64))
+    forged = pack_wire_votes(*fx.full_mesh_cols(
+        I, Vn, seeds, heights, classes[0], VALUE,
+        sigs=sigs[heights, classes[0]]))
+    n_entries = len(svc.cache)
+    svc.submit(forged)
+    svc.pump()
+    svc.pump()
+    svc.poll_decisions()
+    dig = _record_digests(forged, np.arange(len(forged) // 96))
+    checks = {
+        "copies admitted as cache hits": c["hits"] == copies,
+        "copies rode the pre-verified stream":
+            svc.pipeline.preverified_votes == copies,
+        "copies added no verify launch": c["launches"] == heights
+        and p["launches"] == 2 * heights,
+        "decisions == without the cache": all(
+            np.array_equal(getattr(drv.stats, f), getattr(p["drv"].stats, f))
+            for f in ("decided", "decision_value", "decision_round"))
+        and drv.stats.decisions_total == p["drv"].stats.decisions_total
+        == heights * I,
+        "state and tally == without the cache": same,
+        "a forged batch caches nothing":
+            svc.cache.counters["insert_skipped_rejected"] == 1
+            and drv.rejected_signature_device == I
+            and len(svc.cache) <= n_entries
+            and not svc.cache.lookup(dig).any(),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"dedup serve failed: {checks}; hits "
+                             f"{c['hits']}, preverified "
+                             f"{svc.pipeline.preverified_votes}, launches "
+                             f"{c['launches']} / {p['launches']}")
+    log(f"[serve dedup] I={I} V={Vn} {heights} heights, each sent twice: "
+        f"{copies} copies were cache hits and rode the unsigned stream; "
+        f"verify launches {c['launches']} with the cache, {p['launches']} "
+        f"without; wall {c['wall']:.3f} s with, {p['wall']:.3f} s without; "
+        f"cache {svc.cache.snapshot()}")
+    return c["launches"]
+
+
+def serve_bls_phase(fix) -> dict:
+    """Phase 8, part 3: the BLS lane through a BLS-only VoteService at
+    phase 6's configuration (its registry, stake and wire), warmup armed,
+    the forged 4-signer class submitted beside the 8 honest ones.
+    Decisions must equal phase 6's, the forged share be counted as
+    dropped, and the field kernels' launches are returned."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import bls_field as BF
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import BlsLane, ShapeLadder, VoteService
+    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
+
+    I, Vn = I_BLS, V_BLS
+    dev = torch.device(DEVICE)
+    drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                       audit=True, device=dev)
+    drv.set_validators(fix["powers"])
+    bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    bat.set_validators(fix["powers"])
+    lane = BlsLane(fix["reg"], I, target_signers=Vn, max_delay_s=1e9,
+                   device=dev)
+    svc = VoteService(drv, bat, None, bls_lane=lane,
+                      ladder=ShapeLadder.plan(I, Vn).with_bls(Vn))
+    torch.cuda.synchronize()
+    BF.MUL_LAUNCHES = BF.REDUCE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    warmed = svc.pipeline.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm = (BF.MUL_LAUNCHES, BF.REDUCE_LAUNCHES)
+    t0 = time.perf_counter()
+    res = svc.submit_bls(fix["wire"] + fix["f_wire"])
+    svc.pump()
+    svc.pump()
+    dec = svc.poll_decisions()
+    rep = svc.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"bls_fp_mul": BF.MUL_LAUNCHES,
+                "bls_fp_reduce": BF.REDUCE_LAUNCHES}
+    snap = rep["bls"]
+    checks = {
+        "every share admitted": res.accepted == 2 * I * Vn + 4,
+        "decisions == phase 6": all(
+            np.array_equal(getattr(drv.stats, f), fix["stats"][f])
+            for f in ("decided", "decision_value", "decision_round"))
+        and len(dec) == I and {x.value_id for x in dec} == {VALUE},
+        "the forged share dropped": snap["rejected_share_signature"] == 1
+        and snap["fallback_classes"] == 1 and snap["fallback_votes"] == 3,
+        "every class cleared on the device": snap["agg_classes"] == 2 * I
+        and snap["bls_device_pairing_dispatches"] >= -(-2 * I // 4),
+        "no retrace": drv.sentinel.metrics.counters.get(
+            RETRACE_UNEXPECTED, 0) == 0,
+        "field kernels launched": min(launches.values()) > 0
+        and min(warm) > 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"BLS serve failed: {checks}; {snap}")
+    log(f"[serve bls] I={I} V={Vn} {svc.ladder.describe()}; warmup "
+        f"{warmed} shapes {t_warm:.3f} s (field kernel launches mul "
+        f"{warm[0]}, reduce {warm[1]}); {2 * I * Vn + 4} shares served in "
+        f"{wall:.3f} s, {2 * I} classes cleared on the device, the forged "
+        f"share dropped; field kernel launches mul {launches['bls_fp_mul']}"
+        f", reduce {launches['bls_fp_reduce']} (warmup included)")
     return launches
 
 
@@ -1764,7 +2454,7 @@ def main(argv=None) -> int:
         "bound_ms": w4_bound, "bound_by": w4_by, "library_ms": None,
         "lanes": n_msm}
     # -- phase 6: the BLS aggregate lane at full validator width ----------
-    bls_n = bls_lane_phase()
+    bls_n, bls_fix = bls_lane_phase()
     # phase 2c at the lane's row counts, then kernel ms per call:
     # sum over its row counts of launches x ms
     for n in sorted({r for k in bls_n.values() for h in k["rows"].values()
@@ -1816,6 +2506,21 @@ def main(argv=None) -> int:
     # -- phase 7: checkpoint, resume and signed evidence ------------------
     rows["ed25519_verify_signed5"]["launches_checkpoint_phase"] = \
         checkpoint_phase(seeds, pubkeys, sigs)
+    torch.cuda.empty_cache()
+
+    # -- phase 8: the serve plane -------------------------------------------
+    served, s_sigs, s_honest = serve_signed_phase(seeds, pubkeys, classes)
+    torch.cuda.empty_cache()
+    dedup_launches = serve_dedup_phase(seeds, pubkeys, classes, s_sigs,
+                                       s_honest)
+    del s_sigs, s_honest
+    torch.cuda.empty_cache()
+    served["launches_serve_dedup"] = dedup_launches
+    served["launches_serve_phase"] += dedup_launches
+    rows["ed25519_verify_signed5"].update(served)
+    for name, n in serve_bls_phase(bls_fix).items():
+        rows[name]["launches_serve_phase"] = n
+    del bls_fix
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -1,10 +1,12 @@
 """The port stands alone: a fresh interpreter imports `agnes_tpu_torch`
-(the MSM slice's, the BLS lane's and the tooling's modules included),
-runs the CPU slice (fused honest heights, one signed height through the
-bridge with the verify planner, the evidence join, one cross-plane
-replay, one BLS field product and reduce, the microbenchmark's chain, a
-traced checkpoint round trip of the driver and the batcher), and never
-loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
+(the MSM slice's, the BLS lane's, the tooling's and the serve plane's
+modules included), runs the CPU slice (fused honest heights, one signed
+height through the bridge with the verify planner, the evidence join, one
+cross-plane replay, one BLS field product and reduce, the
+microbenchmark's chain, a traced checkpoint round trip of the driver and
+the batcher, an unsigned height served through VoteService with its
+metrics, flight recorder and heartbeat), and never loads `jax` or any
+`agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
 
@@ -44,6 +46,11 @@ from agnes_tpu_torch.serve.bls_lane import BlsKeyRegistry, BlsLane
 from agnes_tpu_torch.utils import (Tracer, load_batcher, load_driver,
                                    save_batcher, save_driver, span)
 from agnes_tpu_torch.utils import budget
+from agnes_tpu_torch.analysis import retrace
+from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+from agnes_tpu_torch.serve import cache, pipeline, queue  # noqa: F401
+from agnes_tpu_torch.serve.service import VoteService
+from agnes_tpu_torch.utils import flightrec, metrics, metrics_http
 
 d = DeviceDriver(4, 4, advance_height=True, device="cpu")
 d.run_heights_fused(2)
@@ -95,6 +102,36 @@ assert [BF.from_limbs(r) % bls_ref.P
 assert BF.from_limbs(BF.reduce_rows(x * 5, 1)[0]) % bls_ref.P == 15
 assert ShapeLadder().with_bls(1000).bls_rung_for(1000) == 1024
 reg = BlsKeyRegistry([list(bls_ref.g1_compress(bls_ref.G1))])
+
+sd = DeviceDriver(2, 4, advance_height=True, device="cpu", audit=True)
+rec = flightrec.FlightRecorder()
+svc = VoteService(sd, VoteBatcher(2, 4, n_slots=4, device="cpu"), None,
+                  max_delay_s=0.0, flightrec=rec,
+                  ladder=ShapeLadder.plan(2, 4, min_rung=16,
+                                          hbm_bytes=1 << 30))
+for typ in (0, 1):
+    c = fx.full_mesh_cols(2, 4, fx.deterministic_seeds(4), 0, typ, 5)
+    assert svc.submit(pack_wire_votes(*c[:6])).accepted == 8
+svc.pump()
+svc.pump()
+assert [(x.value_id, x.round) for x in svc.poll_decisions()] == [(5, 0)] * 2
+assert svc.drain()["decisions_total"] == 2 and rec.counts()["dispatch"] == 1
+assert metrics_http.render_prometheus(svc.metrics).count("serve_") > 10
+with tempfile.TemporaryDirectory() as tmp:
+    hb = flightrec.Heartbeat(os.path.join(tmp, "hb"), recorder=rec,
+                             sources=[svc.metrics.snapshot])
+    hb.beat()
+    assert flightrec.read_heartbeat(hb.path)[1] == []
+assert retrace.warmup_covers(svc.ladder)
+assert isinstance(sd.sentinel, retrace.RetraceSentinel)
+try:
+    VoteService(DeviceDriver(2, 4, device="cpu"),
+                VoteBatcher(2, 4, n_slots=4, device="cpu"))
+except ValueError:
+    pass
+else:
+    raise SystemExit("a CPU service planned a ladder without a budget")
+assert metrics.SERVE_ADMITTED == "serve_admitted"
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
