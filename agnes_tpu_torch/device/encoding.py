@@ -15,14 +15,23 @@ Layout decisions (unchanged from the JAX twin):
 * A Message flattens to (tag, round, value, aux) where aux carries the
   proposal's pol_round, the vote's type, or the timeout's step; tag
   NONE encodes Rust's Option::None return (state_machine.rs:174).
+
+The host <-> device codecs (`encode_state`, `decode_state`,
+`encode_event`, `decode_message`) are the twin's: the encoders give
+numpy int32 scalars (cheap, no device dispatch; `stack_pytree` batches
+them and `convert` moves them over), the decoders read one instance's
+leaves as numpy scalars or 0-d / one-element tensors on any device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from agnes_tpu_torch.core import state_machine as sm
+from agnes_tpu_torch.types import NIL_ID, Vote, VoteType
 
 I32 = torch.int32
 
@@ -90,6 +99,63 @@ class DeviceMessage(NamedTuple):
     round: torch.Tensor
     value: torch.Tensor  # NIL_ID = nil vote / no value
     aux: torch.Tensor    # pol_round | vote type | timeout step
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device conversion (tests, checkpointing)
+# ---------------------------------------------------------------------------
+
+
+def encode_state(s: sm.State) -> DeviceState:
+    """Host State -> numpy int32 leaves (no device dispatch)."""
+    def rv(x):
+        return (x.round, x.value) if x is not None else (-1, -1)
+
+    lr, lv = rv(s.locked)
+    vr, vv = rv(s.valid)
+    a = np.int32
+    return DeviceState(a(s.round), a(int(s.step)), a(lr), a(lv), a(vr),
+                       a(vv), a(s.height))
+
+
+def decode_state(d: DeviceState, height: Optional[int] = None) -> sm.State:
+    """One instance's leaves -> host State (`height` overrides the
+    leaf's)."""
+    g = int
+    locked = (sm.RoundValue(g(d.locked_round), g(d.locked_value))
+              if g(d.locked_round) >= 0 else None)
+    valid = (sm.RoundValue(g(d.valid_round), g(d.valid_value))
+             if g(d.valid_round) >= 0 else None)
+    h = g(d.height) if height is None else height
+    return sm.State(height=h, round=g(d.round), step=sm.Step(g(d.step)),
+                    locked=locked, valid=valid)
+
+
+def encode_event(round: int, ev: sm.Event) -> DeviceEvent:
+    """Host (round, Event) -> numpy int32 leaves."""
+    a = np.int32
+    value = ev.value if ev.value is not None else NIL_ID
+    return DeviceEvent(a(int(ev.tag)), a(round), a(value), a(ev.pol_round))
+
+
+def decode_message(m: DeviceMessage) -> Optional[sm.Message]:
+    """One instance's message leaves -> host Message (None for tag
+    NONE)."""
+    tag = sm.MsgTag(int(m.tag))
+    rnd, val, aux = int(m.round), int(m.value), int(m.aux)
+    if tag == sm.MsgTag.NONE:
+        return None
+    if tag == sm.MsgTag.NEW_ROUND:
+        return sm.Message.new_round(rnd)
+    if tag == sm.MsgTag.PROPOSAL:
+        return sm.Message.proposal_msg(rnd, val, aux)
+    if tag == sm.MsgTag.VOTE:
+        value = None if val == NIL_ID else val
+        vote = Vote(typ=VoteType(aux), round=rnd, value=value)
+        return sm.Message(sm.MsgTag.VOTE, round=rnd, vote=vote)
+    if tag == sm.MsgTag.TIMEOUT:
+        return sm.Message.timeout_msg(rnd, sm.TimeoutStep(aux))
+    return sm.Message.decision_msg(rnd, val)
 
 
 def stack_pytree(items):

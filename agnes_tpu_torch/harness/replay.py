@@ -11,10 +11,12 @@ complete processing stream (peer deliveries, self-deliveries, timeouts,
 in order) through the port's `VoteBatcher` and `DeviceDriver` and
 reports what the device plane decided, per height.
 
-The stream's messages are the port's own wire types: `types.Vote`,
-`core.executor.WireProposal` and `WireTimeout`.  The tap that records a
-host network's streams (the twin's `trace_network`) comes with the
-port's host plane.
+`trace_network` taps every node of a `harness.simulator.Network`:
+because the executor is re-entrant (self-produced proposals and votes
+and fired timeouts all loop back through `execute`), the tap captures
+each node's complete processing stream in exact order.  The stream's
+messages are the port's own wire types: `types.Vote`,
+`core.executor.WireProposal` and `WireTimeout`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,27 @@ _TIMEOUT_TAG = {
     TimeoutStep.PREVOTE: int(EventTag.TIMEOUT_PREVOTE),
     TimeoutStep.PRECOMMIT: int(EventTag.TIMEOUT_PRECOMMIT),
 }
+
+
+def trace_network(net) -> List[List[object]]:
+    """Install a processing-order tap on every node of a
+    harness.Network (before `net.start()`).  Returns one list per node;
+    each fills with the wire messages that node processes, in exact
+    order (including re-entrant self-deliveries and timeout firings)."""
+    traces: List[List[object]] = [[] for _ in net.nodes]
+
+    def _wrap(node, rec):
+        orig = node.execute
+
+        def tapped(msg):
+            rec.append(msg)
+            orig(msg)
+
+        node.execute = tapped
+
+    for node, rec in zip(net.nodes, traces):
+        _wrap(node, rec)
+    return traces
 
 
 @dataclass

@@ -2,7 +2,8 @@
 
   checkpoint.py   snapshot/resume of the device driver and the vote
                   batcher (slot maps and the signed-evidence log), in
-                  the twin's .npz format.
+                  the twin's .npz format, and of a host executor (the
+                  twin's JSON document).
   tracing.py      host spans (chrome-trace JSON, bounded ring, stable
                   thread ids, tick flow events) + `span`, which names a
                   region for torch.profiler and as an NVTX range.
@@ -16,7 +17,9 @@
 from agnes_tpu_torch.utils.checkpoint import (  # noqa: F401
     load_batcher,
     load_driver,
+    load_executor_into,
     save_batcher,
     save_driver,
+    save_executor,
 )
 from agnes_tpu_torch.utils.tracing import Tracer, span  # noqa: F401

@@ -12,19 +12,25 @@ loading re-uploads onto `device` (default "cuda").  Writes go to a
 temporary file renamed over the target, so a crash mid-save never
 clobbers the previous snapshot.
 
-Not ported yet: `save_executor` / `load_executor_into` and
-`save_native_loop` / `load_native_loop`, which snapshot host objects
-(the core executor, the native ingest loop) the port does not have.
+Host executors snapshot separately (`save_executor` /
+`load_executor_into`): their state is a handful of Python scalars plus
+the decided log and the evidence, one JSON document equal to the
+twin's for the same executor.  Not ported yet: `save_native_loop` /
+`load_native_loop`, which snapshot the native ingest loop the port does
+not have.
 """
 
 from __future__ import annotations
 
+import json
 import os
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from agnes_tpu_torch.device.encoding import DeviceState, resolve_device
+from agnes_tpu_torch.device.encoding import (DeviceState, decode_state,
+                                             encode_state, resolve_device)
 from agnes_tpu_torch.device.tally import TallyState
 
 _STATE_PREFIX = "state."
@@ -231,3 +237,61 @@ def load_batcher(path: str, device="cuda"):
                     sig[lo:hi] if has[lo] else None))
                 bat._log_pk.append(tables[ep[lo]] if ep[lo] >= 0 else None)
     return bat
+
+
+# --- host executor snapshots ------------------------------------------------
+
+
+def save_executor(ex, path: str) -> None:
+    """Persist a ConsensusExecutor's progress: height, state fields, the
+    decided log, the clock and the evidence (votes in flight are not
+    persisted: on resume the node rejoins at its height and catches up
+    from peers, the same crash-recovery story as any BFT node)."""
+    s = encode_state(ex.state)
+    doc = {
+        "height": ex.height,
+        "state": {f: int(getattr(s, f)) for f in s._fields},
+        "decided": {h: [d.height, d.round, d.value]
+                    for h, d in ex.decided.items()},
+        "now": ex.wheel.now,
+        # slashing evidence survives restarts: archived records plus the
+        # live height's (the live VoteExecutor is not persisted, so its
+        # equivocations would otherwise vanish with it)
+        "evidence": [[e.height, e.round, int(e.typ), e.validator,
+                      e.first_value, e.second_value]
+                     for e in ex.all_equivocations()],
+    }
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def load_executor_into(ex, path: str) -> Tuple[int, dict]:
+    """Restore height/state/decisions/evidence into a freshly built
+    executor (same validator set and seed).  Returns (height, decided)."""
+    from agnes_tpu_torch.core.executor import Decision
+    from agnes_tpu_torch.core.round_votes import Equivocation
+    from agnes_tpu_torch.core.vote_executor import VoteExecutor
+    from agnes_tpu_torch.types import VoteType
+
+    with open(path) as f:
+        doc = json.load(f)
+    ex.height = doc["height"]
+    ex.evidence = [Equivocation(h, r, VoteType(t), v, fv, sv)
+                   for h, r, t, v, fv, sv in doc["evidence"]]
+    ds = DeviceState(*[np.int32(doc["state"][f])
+                       for f in DeviceState._fields])
+    ex.state = decode_state(ds, height=ex.height)
+    ex.decided = {int(h): Decision(*v) for h, v in doc["decided"].items()}
+    ex.decisions = sorted(ex.decided.values(), key=lambda d: d.height)
+    ex.votes = VoteExecutor(height=ex.height,
+                            total_weight=ex.vset.total_power,
+                            edge_triggered=True)
+    ex.wheel.now = doc["now"]
+    return ex.height, ex.decided

@@ -176,10 +176,24 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      `VoteService(..., bls_lane=...)` with `submit_bls`, warmup armed,
      the forged 4-signer class beside the 8 honest ones: the decisions
      must equal phase 6's and the forged share be dropped; the field
-     kernels' launches are counted (`serve_bls_phase`).
+     kernels' launches are counted (`serve_bls_phase`);
+  9. the host plane and the six benchmark configs
+     (`agnes_tpu_torch.harness.configs`) at their full shapes: configs
+     1, 3, 4, 5 and 6 through `configs.run`, each config's JSON dict on a
+     line of its own; config 2 with its verify launches counted alone
+     (exactly one window-5 launch of 2 x V = 200 lanes), its verdicts
+     held against `verify_plain` at that shape and against the RFC 8032
+     oracle on the host, a batch of the same shape with one forged lane
+     rejected on that lane only, and the kernel and plain timed at that
+     shape; then one node of a config-1 network crashed after height 1,
+     restored through `utils.checkpoint.save_executor` /
+     `load_executor_into`, and deciding its live height with its peers
+     (`host_plane_phase`).
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
-rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches),
+rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
+1 with `launches_configs_phase`, config 2's launch, and its times at
+that launch's 200 lanes),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -1872,6 +1886,120 @@ def serve_bls_phase(fix) -> dict:
     return launches
 
 
+def host_plane_phase(bound) -> dict:
+    """Phase 9: the host plane and the six benchmark configs on the
+    card.  Configs 1, 3, 4, 5 and 6 at their full shapes through
+    `harness.configs.run` (each config's JSON dict on a line of its
+    own), then config 2, whose verify launches are counted alone: exactly
+    one, of 2 x V = 200 lanes.  That launch's verdicts are held against
+    `verify_plain` on the same inputs and against `ed25519_ref.verify`
+    on the host; a batch of the same shape with one forged lane must be
+    rejected on that lane only, by the kernel, plain and the oracle
+    alike; the kernel and plain are timed at that shape.  Last, one node
+    of a config-1 network is crashed after it decided height 1,
+    restored from `save_executor` into a fresh executor with
+    `load_executor_into`, and must decide its live height with its
+    peers.  Returns row 1's additions."""
+    import torch
+
+    from agnes_tpu_torch.core.executor import ConsensusExecutor
+    from agnes_tpu_torch.crypto import ed25519_ref as ref
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto.ed25519 import (pack_verify_inputs,
+                                                verify_batch)
+    from agnes_tpu_torch.harness import configs
+    from agnes_tpu_torch.harness.simulator import Network
+    from agnes_tpu_torch.utils.checkpoint import (load_executor_into,
+                                                  save_executor)
+
+    t0 = time.perf_counter()
+    secs = {}
+    for n in (1, 3, 4, 5, 6):
+        t = time.perf_counter()
+        log(json.dumps(configs.run(n, device=DEVICE)))
+        secs[n] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    # config 2: its launches alone
+    torch.cuda.synchronize()
+    V.LAUNCHES = V.LAUNCHES_W4 = 0
+    t = time.perf_counter()
+    r2, lanes, ok = configs.config2_verify_lanes(device=DEVICE)
+    secs[2] = time.perf_counter() - t
+    launches = (V.LAUNCHES, V.LAUNCHES_W4)
+    log(json.dumps(r2))
+    n_lanes = int(ok.shape[0])
+    if launches != (1, 0) or n_lanes != 200 or r2["validators"] != 100:
+        raise AssertionError(f"config 2: verify launches (W5, W4) "
+                             f"{launches} of {n_lanes} lanes, expected one "
+                             f"W5 launch of 200")
+    args, ok_s = V.prologue(*lanes)
+    plain = (V.verify_plain(*args) > 0) & ok_s
+    mism, max_err = compare(ok.int(), plain.int())
+    pks, msgs, sigs, _ = configs.config2_votes(r2["validators"])
+    host = [ref.verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    if mism or ok.cpu().tolist() != host:
+        raise AssertionError(f"config 2's launch: {mism} lanes != plain, "
+                             f"or != the host oracle")
+    # the same shape with one forged lane (S + 1): rejected there only
+    forged = list(sigs)
+    k = n_lanes // 3
+    s_int = int.from_bytes(sigs[k][32:], "little")
+    forged[k] = sigs[k][:32] + ((s_int + 1) % ref.L).to_bytes(32, "little")
+    lanes_f = pack_verify_inputs(pks, msgs, forged, device=DEVICE)
+    got_f = verify_batch(*lanes_f)
+    args_f, ok_sf = V.prologue(*lanes_f)
+    plain_f = (V.verify_plain(*args_f) > 0) & ok_sf
+    want_f = [i != k for i in range(n_lanes)]
+    host_f = [ref.verify(p, m, s) for p, m, s in zip(pks, msgs, forged)]
+    mism_f, err_f = compare(got_f.int(), plain_f.int())
+    if mism_f or got_f.cpu().tolist() != want_f or host_f != want_f:
+        raise AssertionError(f"forged lane {k}: kernel {mism_f} lanes != "
+                             f"plain, or the verdicts are not {want_f}")
+    # the kernel and plain at config 2's launch shape
+    V.verify_signed5(*args)                      # warm
+    ms = cuda_ms(lambda: V.verify_signed5(*args), 20)
+    plain_ms = cuda_ms(lambda: V.verify_plain(*args), 1)
+    bound_ms, bound_by = bound(V.INT32_OPS_PER_LANE * n_lanes,
+                               V.BYTES_PER_LANE * n_lanes)
+
+    # crash and restore one node of a config-1 network
+    t = time.perf_counter()
+    net = Network(n=4)
+    net.start()
+    net.run_until(lambda: net.decided(1))
+    victim = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "node.json")
+        save_executor(net.nodes[victim], path)
+        fresh = ConsensusExecutor(net.vset, index=victim,
+                                  seed=net.seeds[victim],
+                                  get_value=net.get_value)
+        h, decided = load_executor_into(fresh, path)
+    if decided != net.nodes[victim].decided or h < 2:
+        raise AssertionError(f"restored executor at height {h}, decided "
+                             f"{decided}")
+    net.nodes[victim] = fresh
+    net._delivered[victim] = 0
+    net.run_until(lambda: net.decided(h))
+    dec = {(nd.decided[h].round, nd.decided[h].value) for nd in net.nodes}
+    if len(dec) != 1 or next(iter(dec))[1] != 100 + h:
+        raise AssertionError(f"height {h} after the restore: {dec}")
+    secs["restore"] = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    per = ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+    log(f"[configs] seconds per config {per}; config 2: 1 verify launch of {n_lanes} lanes == plain and the "
+        f"host oracle, forged lane {k} rejected; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) at "
+        f"{n_lanes} lanes; restored node {victim} decided height {h} "
+        f"{next(iter(dec))} with its peers; phase 9 {wall:.3f} s")
+    return {"launches_configs_phase": launches[0],
+            "configs_lanes": n_lanes, "configs_mismatches": mism + mism_f,
+            "configs_max_abs_err": max(max_err, err_f),
+            f"ms_{n_lanes}": ms, f"plain_ms_{n_lanes}": plain_ms,
+            f"bound_ms_{n_lanes}": bound_ms, "configs_phase_s": wall}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2521,6 +2649,10 @@ def main(argv=None) -> int:
     for name, n in serve_bls_phase(bls_fix).items():
         rows[name]["launches_serve_phase"] = n
     del bls_fix
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the host plane and the benchmark configs ----------------
+    rows["ed25519_verify_signed5"].update(host_plane_phase(bound))
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

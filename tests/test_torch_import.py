@@ -5,8 +5,9 @@ height through the bridge with the verify planner, the evidence join, one
 cross-plane replay, one BLS field product and reduce, the
 microbenchmark's chain, a traced checkpoint round trip of the driver and
 the batcher, an unsigned height served through VoteService with its
-metrics, flight recorder and heartbeat), and never loads `jax` or any
-`agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
+metrics, flight recorder and heartbeat, and the host plane: benchmark
+config 1 under --small, a tapped network and an executor snapshot), and
+never loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
 
@@ -51,6 +52,12 @@ from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
 from agnes_tpu_torch.serve import cache, pipeline, queue  # noqa: F401
 from agnes_tpu_torch.serve.service import VoteService
 from agnes_tpu_torch.utils import flightrec, metrics, metrics_http
+from agnes_tpu_torch.core import state_machine as sm
+from agnes_tpu_torch.core.executor import ConsensusExecutor
+from agnes_tpu_torch.device.encoding import decode_state, encode_state
+from agnes_tpu_torch.harness import Network, configs
+from agnes_tpu_torch.harness.replay import trace_network
+from agnes_tpu_torch.utils import load_executor_into, save_executor
 
 d = DeviceDriver(4, 4, advance_height=True, device="cpu")
 d.run_heights_fused(2)
@@ -133,6 +140,20 @@ else:
     raise SystemExit("a CPU service planned a ladder without a budget")
 assert metrics.SERVE_ADMITTED == "serve_admitted"
 
+assert configs.run(1, small=True, device="cpu")["heights"] == 3
+net = Network(n=4)
+taps = trace_network(net)
+net.start()
+net.run_until(lambda: net.decided(0))
+assert set(net.decisions(0)) == {100} and all(taps)
+with tempfile.TemporaryDirectory() as tmp:
+    save_executor(net.nodes[1], os.path.join(tmp, "n1.json"))
+    fresh = ConsensusExecutor(net.vset, 1, net.seeds[1], net.get_value)
+    assert load_executor_into(fresh, os.path.join(tmp, "n1.json"))[1] \
+        == net.nodes[1].decided
+st = sm.State(3, 1, sm.Step.PREVOTE, sm.RoundValue(0, 9))
+assert decode_state(encode_state(st)) == st
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
@@ -146,6 +167,8 @@ if not torch.cuda.is_available():
                  lambda: load_driver(os.devnull),
                  lambda: budget.device_hbm_bytes(),
                  lambda: replay_trace([], 4),
+                 lambda: configs.run(3, small=True),
+                 lambda: configs.run(1, small=True),
                  lambda: MB.main(["--lanes", "2048"])):
         try:
             make()
