@@ -11,10 +11,10 @@ fills every stub:
 
   * proposer selection — the shared `ProposerRotation` sequence;
   * signing — Ed25519 over the canonical encodings (crypto.encoding),
-    by the port's own RFC 8032 implementation (`crypto/ed25519_ref`),
-    one signer with no fallback policy: the port has no native host
-    signer, and RFC 8032 signatures are deterministic, so the outbox is
-    the twin's byte for byte whichever signer the twin used;
+    by the port's host signer `crypto.host_sign` / `host_verify` (the
+    C++ core of `core/native.py`, one signer with no fallback: a failed
+    g++ build raises); RFC 8032 signatures are deterministic, so the
+    outbox is the twin's byte for byte;
   * signature verification + real voting-power weights on inbound
     votes (consensus_executor.rs:57 "TODO check validity", :62-63);
   * timeout scheduling — a virtual-time `TimerWheel` with the classic
@@ -45,8 +45,8 @@ from agnes_tpu_torch.core import state_machine as sm
 from agnes_tpu_torch.core.validators import ProposerRotation, ValidatorSet
 from agnes_tpu_torch.core.vote_executor import VoteExecutor
 from agnes_tpu_torch.crypto import encoding
-from agnes_tpu_torch.crypto.ed25519_ref import sign as _sign
-from agnes_tpu_torch.crypto.ed25519_ref import verify as _verify
+from agnes_tpu_torch.crypto import host_sign as _sign
+from agnes_tpu_torch.crypto import host_verify as _verify
 from agnes_tpu_torch.types import MAX_ROUND, Proposal, Vote
 
 

@@ -1,1 +1,24 @@
-"""crypto layer of the PyTorch port (see the package docstring)."""
+"""crypto layer of the PyTorch port (see the package docstring).
+
+`host_sign` / `host_verify` are the port's one host signer and host
+verifier (twin of `agnes_tpu.crypto.host_sign` / `host_verify`): the
+C++ Ed25519 of `core/native.py`, built with g++ at first use.  There is
+no fallback: a failed build raises.  RFC 8032 signatures are
+deterministic, so they equal `crypto/ed25519_ref.py`'s (the tests'
+oracle) byte for byte.
+"""
+
+
+def host_sign(seed: bytes, msg: bytes) -> bytes:
+    """RFC 8032 signature of `msg` under the 32-byte `seed` (C++)."""
+    from agnes_tpu_torch.core import native
+
+    return native.sign(seed, msg)
+
+
+def host_verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    """Cofactored RFC 8032 verification on the host (C++)."""
+    from agnes_tpu_torch.core import native
+
+    return native.verify(pk, msg, sig)
+

@@ -27,11 +27,10 @@ CPU and test runs, to the twin's small shapes.
      without deciding, a majority split decides alone, and heal
      converges everyone.
 
-Departures from the twin: config 2 signs with the port's `crypto/
-ed25519_ref` (the twin uses its C++ signer; RFC 8032 signatures are
-deterministic, so the bytes are the same) and cross-checks the device
-verdicts with `ed25519_ref.verify` on the host, where the twin uses its
-C++ batch verifier.  Its `first_call_s` is the one verify call, the
+Config 2 signs with the port's host signer (`crypto.host_sign`, the
+C++ core) and cross-checks the device verdicts with the C++ batch
+verifier `core.native.verify_batch` on the host, as the twin does.
+Departures from the twin: its `first_call_s` is the one verify call, the
 kernel's load included (the kernel is built before the clock starts),
 where the twin's is an XLA compile plus a run; `verifies_per_sec` is
 2 x V over that same call (the twin times a second call).  The twin's
@@ -91,18 +90,19 @@ def config2_votes(V: int, value: int = 42):
     prevote and precommit each for `value` at height 1, round 0.
     Returns (pubkeys, messages, signatures, votes), 2 x V of each,
     prevotes first."""
-    from agnes_tpu_torch.crypto import ed25519_ref as ref
+    from agnes_tpu_torch.core import native
+    from agnes_tpu_torch.crypto import host_sign
     from agnes_tpu_torch.crypto.encoding import vote_signing_bytes
     from agnes_tpu_torch.types import Vote
 
     seeds = [bytes([i % 251 + 1, i // 251]) + bytes(30) for i in range(V)]
-    pks = [ref.keypair(s)[1] for s in seeds]
+    pks = [native.pubkey(s) for s in seeds]
     msgs, sigs, votes = [], [], []
     for typ in (VoteType.PREVOTE, VoteType.PRECOMMIT):
         m = vote_signing_bytes(1, 0, int(typ), value)
         for i in range(V):
             msgs.append(m)
-            sigs.append(ref.sign(seeds[i], m))
+            sigs.append(host_sign(seeds[i], m))
             votes.append(Vote(typ=typ, round=0, value=value, validator=i,
                               height=1))
     return pks + pks, msgs, sigs, votes
@@ -114,9 +114,9 @@ def config2_verify_lanes(small: bool = False, device="cuda"):
     import torch
 
     from agnes_tpu_torch import cuda_build
+    from agnes_tpu_torch.core import native
     from agnes_tpu_torch.core.state_machine import Event, State, Step
     from agnes_tpu_torch.core.vote_executor import VoteExecutor
-    from agnes_tpu_torch.crypto import ed25519_ref as ref
     from agnes_tpu_torch.crypto.ed25519 import (pack_verify_inputs,
                                                 verify_batch)
     from agnes_tpu_torch.crypto.verify import KERNEL
@@ -135,9 +135,9 @@ def config2_verify_lanes(small: bool = False, device="cuda"):
     verdicts = ok.cpu().numpy().tolist()       # waits for the device
     dt = time.perf_counter() - t0
     _check(all(verdicts), f"honest lanes rejected: {verdicts}")
-    # host cross-check: the RFC 8032 oracle, lane for lane
-    host = [ref.verify(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
-    _check(host == verdicts, "device verdicts != ed25519_ref.verify")
+    # host cross-check: the C++ batch verifier, lane for lane
+    host = native.verify_batch(pks, msgs, sigs)
+    _check(host == verdicts, "device verdicts != native.verify_batch")
 
     # verified votes -> tally -> decision
     state = State.new(1)

@@ -1,10 +1,12 @@
 """Signed-traffic fixtures (twin of `agnes_tpu.harness.fixtures`) and
 the adversarial verify grid the tests and `chip_smoke.py` share.
 
-Signing uses the port's own pure-Python RFC 8032 copy
-(`crypto/ed25519_ref.py`), about 6 ms a signature on one CPU core;
+Keys and signatures come from the port's host signer (`core.native`
+through `crypto.host_sign`, the C++ core built with g++ at first use);
 `sign_class` signs one message per validator, so every instance of a
-class reuses its validator's signature (the JAX twin's layout).
+class reuses its validator's signature (the JAX twin's layout).  The
+adversarial grid's crafted lanes (`torsioned_sig`, out-of-range S and
+y) need the pure-Python oracle's internals (`crypto/ed25519_ref.py`).
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from agnes_tpu_torch.bridge.ingest import vote_messages_np
+from agnes_tpu_torch.core import native
 from agnes_tpu_torch.crypto import ed25519_ref as ref
+from agnes_tpu_torch.crypto import host_sign
 
 
 def deterministic_seeds(n_validators: int) -> List[bytes]:
@@ -26,7 +30,7 @@ def deterministic_seeds(n_validators: int) -> List[bytes]:
 
 def validator_pubkeys(seeds: List[bytes]) -> np.ndarray:
     """[V, 32] uint8 table for the given seeds."""
-    return np.stack([np.frombuffer(ref.keypair(s)[1], np.uint8)
+    return np.stack([np.frombuffer(native.pubkey(s), np.uint8)
                      for s in seeds])
 
 
@@ -42,12 +46,13 @@ def sign_class(seeds: List[bytes], height: int, typ: int, value: int,
                             np.full(V, round_, np.int64),
                             np.full(V, typ, np.int64),
                             np.full(V, value, np.int64))
-    sigs = np.stack([np.frombuffer(ref.sign(seeds[v], msgs[v].tobytes()),
+    sigs = np.stack([np.frombuffer(host_sign(seeds[v], msgs[v].tobytes()),
                                    np.uint8) for v in range(V)])
     if forge_validator is not None:
         wrong = (forge_validator + 1) % V
         sigs[forge_validator] = np.frombuffer(
-            ref.sign(seeds[wrong], msgs[forge_validator].tobytes()), np.uint8)
+            host_sign(seeds[wrong], msgs[forge_validator].tobytes()),
+            np.uint8)
     return sigs
 
 

@@ -25,8 +25,9 @@ TimeoutPrevote -> PrecommitAny -> TimeoutPrecommit -> a fresh round
 where the reunited quorum decides — the classic liveness-recovery
 scenario, no cluster required.
 
-Signing goes through the port's `crypto/ed25519_ref` (the executor's
-one signer), so a network's outboxes are the twin's byte for byte.
+Signing goes through the port's host signer `crypto.host_sign` (the
+C++ core, the executor's one signer), so a network's outboxes are the
+twin's byte for byte.
 The single-step scheduler surface (`enable_step_mode`, `mc_*`,
 `run_schedule`) is the model checker's; the port's corpus replay
 drives `run_schedule`.
@@ -49,7 +50,7 @@ from agnes_tpu_torch.core.round_votes import Equivocation
 from agnes_tpu_torch.core.state_machine import TimeoutStep
 from agnes_tpu_torch.core.validators import Validator, ValidatorSet
 from agnes_tpu_torch.crypto import ed25519_ref as ed
-from agnes_tpu_torch.crypto.ed25519_ref import sign as _sign
+from agnes_tpu_torch.crypto import host_sign as _sign
 from agnes_tpu_torch.crypto.encoding import vote_signing_bytes
 from agnes_tpu_torch.types import Vote
 

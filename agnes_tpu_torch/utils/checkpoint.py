@@ -15,9 +15,10 @@ clobbers the previous snapshot.
 Host executors snapshot separately (`save_executor` /
 `load_executor_into`): their state is a handful of Python scalars plus
 the decided log and the evidence, one JSON document equal to the
-twin's for the same executor.  Not ported yet: `save_native_loop` /
-`load_native_loop`, which snapshot the native ingest loop the port does
-not have.
+twin's for the same executor.  The native ingest loop snapshots through
+`save_native_loop` / `load_native_loop`: the twin's leaves (`meta`,
+`powers`, `slots`, `log`, `counters`, `heights`, `base_round`), so a
+snapshot of either package's loop loads in the other's.
 """
 
 from __future__ import annotations
@@ -237,6 +238,46 @@ def load_batcher(path: str, device="cuda"):
                     sig[lo:hi] if has[lo] else None))
                 bat._log_pk.append(tables[ep[lo]] if ep[lo] >= 0 else None)
     return bat
+
+
+def save_native_loop(loop, path: str) -> None:
+    """Persist a `bridge.NativeIngestLoop`'s durable state (the policy
+    of `save_batcher`: slot decode, evidence log, counters, window;
+    in-flight votes re-arrive from peers)."""
+    st = loop.export_state()
+    leaves = {"meta": np.asarray(
+        [loop.I, loop.V, loop._n_rounds, loop._n_slots,
+         int(loop.signed), loop.held_cap], np.int64)}
+    if loop._powers is not None:
+        leaves["powers"] = loop._powers
+    leaves.update(st)
+    _atomic_savez(path, leaves)
+
+
+def load_native_loop(path: str, pubkeys=None, powers=None, device="cuda"):
+    """Rebuild a NativeIngestLoop on `device` from a snapshot.  A loop
+    saved with signature verification on must be given the pubkey table
+    again (it is the validator set, not snapshot-private state); voting
+    powers and the held cap restore from the snapshot unless
+    overridden."""
+    from agnes_tpu_torch.bridge.native_ingest import NativeIngestLoop
+
+    with np.load(path) as z:
+        m = z["meta"]
+        if bool(m[4]) and pubkeys is None:
+            raise ValueError(
+                "snapshot was taken with signature verification on; "
+                "pass the validator pubkey table")
+        if powers is None and "powers" in z.files:
+            powers = z["powers"]
+        loop = NativeIngestLoop(int(m[0]), int(m[1]), n_slots=int(m[3]),
+                                n_rounds=int(m[2]), pubkeys=pubkeys,
+                                powers=powers, held_cap=int(m[5]),
+                                device=device)
+        loop.import_state({k: z[k] for k in
+                           ("slots", "log", "counters", "heights",
+                            "base_round")})
+    return loop
 
 
 # --- host executor snapshots ------------------------------------------------

@@ -189,11 +189,43 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      restored through `utils.checkpoint.save_executor` /
      `load_executor_into`, and deciding its live height with its peers
      (`host_plane_phase`).
+  10. the C++ ingest loop (`bridge.NativeIngestLoop` over the port's own
+     `core/native/ingest.cpp`, built with g++ at first use), four parts
+     at I = 1,024 x V = 1,000 with phase 3's traffic (validator 7 forged
+     in both classes), three heights each (height 0 warms, heights 1-2
+     are timed).  (a) The Python bridge (`add_arrays` ->
+     `build_phases_device` -> `step_seq_signed`) with its stages timed
+     from this script (`StageClock` wraps the eligibility gate,
+     `_intern_slots`, `_emit`, `_pack_verify_inputs_np`,
+     `_sha_blocks_np` and the uploads `_to_device`, which it
+     synchronizes; the prologue and the kernel by CUDA events).  (b) The
+     same wire through the loop: `push` of both classes, `build_phases`
+     (C++ stage and fill, the upload, one window-5 verify launch of
+     2,048,000 lanes, C++ verdict filter and emit, the phase upload),
+     then `DeviceDriver.step_seq`, each stage timed; every height must
+     make exactly one verify launch, reject 2 x I lanes and leave state,
+     tally and decisions equal to (a)'s, leaf for leaf; height 1's
+     phases must equal `VoteBatcher.build_phases(pubkeys)`'s on the same
+     wire (round, class, count, slots, mask, height); that launch's
+     verdicts must reject exactly validator 7's lanes, and the kernel
+     must equal plain on 16,384 sampled lanes, every forged lane among
+     them.  (c) The overlapped variant: the entry step queued by
+     `step_async` while `push_async` hands both classes to the loop's
+     worker thread, the window read (which waits for the card), then
+     `build_phases` and the step queued (`defer_collect=True`, one
+     `block_until_ready` at the end), with `async_depth` read at each
+     build and the same exactness.  (d) One north-star height through
+     the loop (I = 10,000, 20,000,000 lanes, phase 3n's traffic): one
+     verify launch, 2 x I rejected lanes, decisions equal to phase 3n's,
+     the stages, the wall and the host's peak RSS sampled while it runs
+     (`RssPeak`).  Votes/s of (a), (b), (c) and (d) are logged beside
+     phase 3's (`native_ingest_phase`).
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
 1 with `launches_configs_phase`, config 2's launch, and its times at
-that launch's 200 lanes),
+that launch's 200 lanes, and with `launches_native_phase`, the C++
+loop's launches in phase 10, and that phase's stage tables),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -229,6 +261,8 @@ EQUIVOCATOR = 9                    # phase 7: signs value 8 as well
 SERVE_HEIGHTS = 3                  # phase 8: signed heights served
 I_DEDUP = 64                       # phase 8: the dedup serve's instances
 N_SERVE_SAMPLE = 16_384            # phase 8: served lanes held against plain
+NATIVE_HEIGHTS = 3                 # phase 10: one warm height, then two timed
+N_NATIVE_SAMPLE = 16_384           # phase 10: the loop's lanes held against plain
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -871,10 +905,11 @@ def signed_variants(I, Vn, phases, lanes, ref) -> None:
         f"({stats(asy)[0]})")
 
 
-def north_star_phase(seeds, pubkeys, sigs, bound) -> dict:
+def north_star_phase(seeds, pubkeys, sigs, bound):
     """Phase 3n: one signed height at I = 10,000 x V = 1,000 (20,000,000
     lanes) with the verify planner ("auto"); see the module docstring.
-    Returns its numbers for the verify kernel's line."""
+    Returns its numbers for the verify kernel's line, and its decisions
+    (phase 10 holds the C++ loop's against them)."""
     import resource
 
     import numpy as np
@@ -922,6 +957,7 @@ def north_star_phase(seeds, pubkeys, sigs, bound) -> dict:
     rss_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     values = {bat.decode_slot(0, int(s))
               for s in np.unique(drv.stats.decision_value)}
+    decisions = _decisions(drv, bat.decode_slot)
     checks = {
         "all decided": bool(drv.stats.decided.all()),
         "round 0": bool((drv.stats.decision_round == 0).all()),
@@ -1050,13 +1086,14 @@ def north_star_phase(seeds, pubkeys, sigs, bound) -> dict:
                        got, args, ok_s, at)
     return {"launches_north_star": launches,
             "north_star_lanes": n, "north_star_chunks": plan.n_chunks,
+            "north_star_wall_s": wall, "north_star_votes_per_s": n / wall,
             "north_star_tile": plan.tile,
             "launches_north_star_half_budget": launches2,
             "north_star_kernel_ms": ker_ms,
             "north_star_prologue_ms": pro_ms,
             "north_star_bound_ms": bound_ms,
             "north_star_sample_mismatches": mism + mism2,
-            "north_star_sample_max_abs_err": max(max_err, err2)}
+            "north_star_sample_max_abs_err": max(max_err, err2)}, decisions
 
 
 def checkpoint_phase(seeds, pubkeys, sigs) -> int:
@@ -2000,6 +2037,523 @@ def host_plane_phase(bound) -> dict:
             f"bound_ms_{n_lanes}": bound_ms, "configs_phase_s": wall}
 
 
+class StageClock:
+    """Stage times of one run, from the smoke: `wrap` replaces a function
+    or method for the run with one that times it on the host clock,
+    exclusive of the wrapped functions it calls (inclusive beside), and,
+    for a stage that copies to the card (`sync=True`), synchronizes the
+    card on entry and exit so its time holds its copies; `events` times
+    a function's device work by CUDA events (the host clock on the CPU).
+    `restore` puts every original back.  Nothing in the package changes:
+    the wrappers live in this script."""
+
+    def __init__(self, dev):
+        from collections import defaultdict
+
+        self.dev = dev
+        self.excl = defaultdict(float)
+        self.incl = defaultdict(float)
+        self.calls = defaultdict(int)
+        self.ev = defaultdict(list)
+        self.keep = set()            # `events` keys whose last output to keep
+        self.last = {}
+        self._stack = []
+        self._undo = []
+
+    def sync(self) -> None:
+        import torch
+
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def wrap(self, owner, attr, key, sync=False):
+        orig = getattr(owner, attr)
+
+        def timed(*a, **k):
+            name = key(self._stack) if callable(key) else key
+            if sync:
+                self.sync()
+            self._stack.append([name, 0.0])
+            t = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                if sync:
+                    self.sync()
+                dt = time.perf_counter() - t
+                child = self._stack.pop()[1]
+                self.incl[name] += dt
+                self.excl[name] += dt - child
+                self.calls[name] += 1
+                if self._stack:
+                    self._stack[-1][1] += dt
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def events(self, owner, attr, key):
+        import torch
+
+        orig = getattr(owner, attr)
+
+        def timed(*a, **k):
+            if self.dev.type != "cuda":
+                t = time.perf_counter()
+                out = orig(*a, **k)
+                self.ev[key].append(time.perf_counter() - t)
+            else:
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = orig(*a, **k)
+                e.record()
+                self.ev[key].append((s, e))
+            if key in self.keep:
+                self.last[key] = out
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def under(self, parent, inside, outside):
+        """A key that depends on whether the call runs inside `parent`."""
+        return lambda stack: inside if any(n == parent for n, _ in stack) \
+            else outside
+
+    def device_ms(self, key) -> float:
+        """Total device ms of an `events` stage (synchronizes)."""
+        self.sync()
+        return sum(x * 1e3 if isinstance(x, float)
+                   else x[0].elapsed_time(x[1]) for x in self.ev[key])
+
+    def reset(self) -> None:
+        for d in (self.excl, self.incl, self.calls, self.ev):
+            d.clear()
+
+    def restore(self) -> None:
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo = []
+
+
+class RssPeak:
+    """The peak of this process's resident set while a block runs,
+    sampled every 20 ms from /proc/self/status by a thread (the
+    process's lifetime peak is phase 3n's, so it cannot be read
+    afterwards)."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = _host_rss_gib()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, _host_rss_gib())
+
+        self._t = threading.Thread(target=sample, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, _host_rss_gib())
+
+
+def _leaves(drv) -> list:
+    """Copies of a driver's state and tally leaves."""
+    return [x.clone() for part in (drv.state, drv.tally) for x in part]
+
+
+def _same_leaves(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _decisions(drv, decode) -> tuple:
+    """(decided, decoded value, round) of every instance."""
+    import numpy as np
+
+    st = drv.stats
+    vals = np.array([decode(i, int(s)) if d else -1 for i, (d, s) in
+                     enumerate(zip(st.decided, st.decision_value))])
+    return (st.decided.copy(), vals, st.decision_round.copy())
+
+
+def _same_decisions(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+
+
+def native_ingest_phase(seeds, pubkeys, sigs, python_rate, north_rate,
+                        north_decisions) -> dict:
+    """Phase 10: the C++ ingest loop (`bridge.NativeIngestLoop`); see the
+    module docstring.  Returns its numbers for the verify kernel's
+    line."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge import ingest as ING
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.bridge.native_ingest import (NativeIngestLoop,
+                                                      pack_wire_votes)
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.types import VoteType
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    I, Vn, H = I_SIGNED, V_SIGNED, NATIVE_HEIGHTS
+    classes = (int(VoteType.PREVOTE), int(VoteType.PRECOMMIT))
+    clock = StageClock(dev)
+    n = 2 * I * Vn
+    t0 = time.perf_counter()
+    hsigs = [sigs] + [[fx.sign_class(seeds, h, typ, VALUE,
+                                     forge_validator=FORGED)
+                       for typ in classes] for h in range(1, H)]
+    cols = [[fx.full_mesh_cols(I, Vn, seeds, h, typ, VALUE, sigs=hsigs[h][c])
+             for c, typ in enumerate(classes)] for h in range(H)]
+    wires = [[pack_wire_votes(*c) for c in hc] for hc in cols]
+    log(f"[native] fixture: {2 * Vn * (H - 1)} C++ signatures for heights "
+        f"1-{H - 1}, columns and wire of {H} heights "
+        f"({2 * len(wires[0][0]) / 2**20:.0f} MiB of wire a height): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def window(drv):
+        return (drv.tally.base_round.cpu().numpy(),
+                drv.state.height.cpu().numpy())
+
+    def height_checks(who, drv, bridge, h, decs, rejected):
+        d, v, r = _decisions(drv, bridge.decode_slot)
+        if not (d.all() and (v == VALUE).all() and (r == 0).all()
+                and drv.stats.decisions_total == I * (h + 1)
+                and rejected == 2 * I):
+            raise AssertionError(
+                f"{who}, height {h}: decided {int(d.sum())} of {I}, "
+                f"values {set(v.tolist())}, total "
+                f"{drv.stats.decisions_total}, rejected {rejected}")
+        decs.append((d, v, r))
+
+    # -- 1. the Python bridge, stage by stage -------------------------------
+    py_keys = ("add_arrays", "_device_verify_eligible", "_intern_slots",
+               "_emit", "phase uploads", "_pack_verify_inputs_np",
+               "_sha_blocks_np", "lane uploads", "build_phases_device",
+               "step")
+    py_walls, py_decs, py_leaves = [], [], []
+    try:
+        clock.wrap(VoteBatcher, "add_arrays", "add_arrays")
+        for m in ("build_phases_device", "_device_verify_eligible",
+                  "_intern_slots", "_emit", "_pack_verify_inputs_np"):
+            clock.wrap(VoteBatcher, m, m)
+        clock.wrap(ING, "_sha_blocks_np", "_sha_blocks_np")
+        clock.wrap(VoteBatcher, "_to_device",
+                   clock.under("_emit", "phase uploads", "lane uploads"),
+                   sync=True)
+        clock.events(V, "prologue", "prologue")
+        clock.events(V, "verify_signed5", "kernel")
+        drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+        bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+        V.LAUNCHES = 0
+        for h in range(H):
+            if h == 1:
+                clock.reset()                   # height 0 warms
+            bat.sync_device(*window(drv))
+            rej0 = drv.rejected_signature_device
+            clock.sync()
+            t = time.perf_counter()
+            for c in cols[h]:
+                bat.add_arrays(*c)
+            phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+            if lanes is None:
+                raise AssertionError("the Python bridge left the device path")
+            ts = time.perf_counter()
+            drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases],
+                                lanes)
+            clock.sync()
+            clock.excl["step"] += time.perf_counter() - ts
+            clock.calls["step"] += 1
+            py_walls.append(time.perf_counter() - t)
+            height_checks("Python bridge", drv, bat, h, py_decs,
+                          drv.rejected_signature_device - rej0)
+            py_leaves.append(_leaves(drv))
+        py_launches = V.LAUNCHES
+        py_ms = {k: clock.excl[k] * 1e3 / (H - 1) for k in py_keys}
+        py_ms.update({k: clock.device_ms(k) / (H - 1)
+                      for k in ("prologue", "kernel")})
+    finally:
+        clock.restore()
+    del drv, bat, phases, lanes
+    py_wall = sum(py_walls[1:]) / (H - 1)
+    if py_launches != H:
+        raise AssertionError(f"Python bridge: {py_launches} verify launches "
+                             f"over {H} heights")
+    log("[native] Python bridge, ms a height over heights 1-"
+        f"{H - 1} (host clock, exclusive of the nested stages; "
+        "`build_phases_device` is its own rest; uploads synchronized; "
+        "prologue and kernel by CUDA events inside the step): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in py_ms.items())
+        + f"; wall {py_wall * 1e3:.1f} ms a height, {n / py_wall:.0f} "
+        f"verified votes/s (height 0 {py_walls[0] * 1e3:.1f} ms; phase 3, "
+        f"one height on fresh objects: {python_rate:.0f}/s)")
+
+    # -- 2-3. the C++ loop, synchronous then overlapped ------------------------
+    nat_keys = ("push", "stage + fill", "upload", "verify",
+                "apply + emit", "phase upload", "step")
+    runs = {}
+    try:
+        clock.wrap(NativeIngestLoop, "push", "push")
+        clock.wrap(NativeIngestLoop, "push_async", "push")
+        clock.wrap(NativeIngestLoop, "_stage", "stage + fill")
+        clock.wrap(NativeIngestLoop, "_verify", "verify")
+        clock.wrap(NativeIngestLoop, "_to_device", "upload", sync=True)
+        clock.wrap(NativeIngestLoop, "_apply_and_emit", "apply + emit")
+        clock.wrap(NativeIngestLoop, "_phases", "phase upload", sync=True)
+        clock.events(V, "prologue", "prologue")
+        clock.events(V, "verify_signed5", "kernel")
+        for overlapped in (False, True):
+            loop = NativeIngestLoop(I, Vn, n_slots=4, pubkeys=pubkeys,
+                                    device=dev)
+            drv = DeviceDriver(I, Vn, advance_height=True, device=dev,
+                               defer_collect=overlapped)
+            r = {"walls": [], "decs": [], "launches": [], "depth": [],
+                 "leaves": []}
+            for h in range(H):
+                if h == 1:
+                    clock.reset()
+                    t1 = time.perf_counter()
+                if h == 1 and not overlapped:
+                    clock.keep = {"prologue", "kernel"}
+                rej0 = loop.counters["rejected_signature"]
+                V.LAUNCHES = 0
+                if not overlapped:
+                    clock.sync()
+                t = time.perf_counter()
+                if overlapped:
+                    # the worker parses both classes while the card runs
+                    # the last height's step and this entry step; reading
+                    # the window waits for them; nothing else blocks
+                    drv.step_async([drv.empty_phase()])
+                    for w in wires[h]:
+                        loop.push_async(w)
+                    loop.sync_device(*window(drv))
+                    r["depth"].append(loop.async_depth)
+                    phases = loop.build_phases()
+                    ts = time.perf_counter()
+                    drv.step_async([p for p, _ in phases])
+                else:
+                    win = window(drv)
+                    loop.sync_device(*win)
+                    for w in wires[h]:
+                        loop.push(w)
+                    phases = loop.build_phases()
+                    ts = time.perf_counter()
+                    drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+                    clock.sync()
+                clock.excl["step"] += time.perf_counter() - ts
+                clock.calls["step"] += 1
+                r["walls"].append(time.perf_counter() - t)
+                r["launches"].append(V.LAUNCHES)
+                clock.keep = set()
+                rejected = loop.counters["rejected_signature"] - rej0
+                if overlapped:
+                    if rejected != 2 * I:
+                        raise AssertionError(f"C++ loop overlapped, height "
+                                             f"{h}: rejected {rejected}")
+                else:
+                    height_checks("C++ loop", drv, loop, h, r["decs"],
+                                  rejected)
+                r["leaves"].append(_leaves(drv))
+                if h == 1 and not overlapped:
+                    r["phases"], r["window"] = phases, win
+            if overlapped:
+                drv.block_until_ready()
+                r["wall"] = (time.perf_counter() - t1) / (H - 1)
+                height_checks("C++ loop overlapped", drv, loop, H - 1,
+                              r["decs"], 2 * I)
+                r["decs"] = [r["decs"][0]] * H
+            else:
+                r["wall"] = sum(r["walls"][1:]) / (H - 1)
+            r["ms"] = {k: clock.excl[k] * 1e3 / (H - 1) for k in nat_keys}
+            r["ms"].update({k: clock.device_ms(k) / (H - 1)
+                            for k in ("prologue", "kernel")})
+            runs[overlapped] = r
+            del loop, drv
+    finally:
+        clock.restore()
+    for overlapped, r in runs.items():
+        name = "overlapped" if overlapped else "synchronous"
+        if r["launches"] != [1] * H:
+            raise AssertionError(f"C++ loop ({name}): verify launches a "
+                                 f"height {r['launches']}, not 1")
+        for h in range(H):
+            if not (_same_leaves(r["leaves"][h], py_leaves[h])
+                    and _same_decisions(r["decs"][h], py_decs[h])):
+                raise AssertionError(f"C++ loop ({name}), height {h}: state,"
+                                     f" tally or decisions differ from the "
+                                     f"Python bridge's")
+    sync_run = runs[False]
+    nat_wall, ovl_wall = sync_run["wall"], runs[True]["wall"]
+    del py_leaves
+    for r in runs.values():
+        del r["leaves"]
+
+    # the loop's phases at height 1 == VoteBatcher.build_phases(pubkeys)'s
+    # (host-verified) on the same wire; one more verify launch, not the
+    # loop's
+    ref = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    ref.sync_device(*sync_run["window"])
+    for c in cols[1]:
+        ref.add_arrays(*c)
+    want = ref.build_phases(pubkeys)
+    got = sync_run.pop("phases")
+    same = len(got) == len(want) and all(
+        na == nb and all(torch.equal(x, y) for x, y in zip(pa, pb))
+        for (pa, na), (pb, nb) in zip(got, want))
+    if not same:
+        raise AssertionError("C++ loop phases != VoteBatcher.build_phases "
+                             "on the same wire")
+    del got, want, ref
+
+    # the loop's one launch at height 1 against plain: its verdicts on
+    # every lane (forged exactly where validator 7 signed), and kernel ==
+    # plain on a sample holding every forged lane
+    (args, ok_s), out = clock.last.pop("prologue"), clock.last.pop("kernel")
+    verdict = ((out > 0) & ok_s).cpu().numpy()
+    val = np.tile(np.arange(Vn), 2 * I)
+    if not np.array_equal(verdict, val != FORGED):
+        raise AssertionError("C++ loop's verify launch: verdicts are not "
+                             "'every lane but validator 7's'")
+    rng = np.random.RandomState(SEED + 10)
+    forged = np.nonzero(val == FORGED)[0]
+    honest = np.nonzero(val != FORGED)[0]
+    idx = np.sort(np.concatenate([forged, rng.choice(
+        honest, N_NATIVE_SAMPLE - len(forged), replace=False)]))
+    sel = torch.from_numpy(idx).to(dev)
+    plain = V.verify_plain(*[a[..., sel] for a in args])
+    mism, max_err = compare(out[sel], plain)
+    if mism:
+        raise AssertionError(f"C++ loop's verify launch: kernel != plain on "
+                             f"{mism} of {len(idx)} sampled lanes")
+    del args, ok_s, out, plain, sel
+    log(f"[native] kernel == plain on {len(idx)} sampled lanes of the "
+        f"loop's {n}-lane launch ({len(forged)} forged, all rejected); "
+        f"verdicts reject exactly validator {FORGED}'s {2 * I} lanes; the "
+        f"loop's phases == VoteBatcher.build_phases(pubkeys)'s on the same "
+        f"wire")
+    for overlapped, r in runs.items():
+        wall = ovl_wall if overlapped else nat_wall
+        log(f"[native] C++ loop{' overlapped' if overlapped else ''}, ms a "
+            f"height over heights 1-{H - 1} (host clock, exclusive; "
+            f"`verify` holds the prologue and kernel launches and the "
+            f"verdicts' read-back, their device times beside; uploads "
+            f"synchronized): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["ms"].items())
+            + f"; wall {wall * 1e3:.1f} ms a height, {n / wall:.0f} verified "
+            f"votes/s (height 0 {r['walls'][0] * 1e3:.1f} ms); 1 verify "
+            f"launch a "
+            f"height; state and tally == the Python bridge's at every "
+            f"height, decisions {'at the end' if overlapped else 'too'}; "
+            f"{2 * I} rejected a height"
+            + (f"; async_depth at build_phases {r['depth']}"
+               if overlapped else ""))
+    del cols, wires
+    torch.cuda.empty_cache()
+
+    # -- 4. one north-star height through the loop ----------------------------
+    In = I_NORTH
+    t0 = time.perf_counter()
+    wn = []
+    for c, typ in enumerate(classes):
+        col = fx.full_mesh_cols(In, Vn, seeds, 0, typ, VALUE, sigs=sigs[c])
+        wn.append(pack_wire_votes(*col))
+        del col
+    t_wire = time.perf_counter() - t0
+    nn = 2 * In * Vn
+    loop = NativeIngestLoop(In, Vn, n_slots=4, pubkeys=pubkeys, device=dev)
+    drv = DeviceDriver(In, Vn, advance_height=True, device=dev)
+    try:
+        clock.wrap(NativeIngestLoop, "push", "push")
+        clock.wrap(NativeIngestLoop, "_stage", "stage + fill")
+        clock.wrap(NativeIngestLoop, "_verify", "verify")
+        clock.wrap(NativeIngestLoop, "_to_device", "upload", sync=True)
+        clock.wrap(NativeIngestLoop, "_apply_and_emit", "apply + emit")
+        clock.wrap(NativeIngestLoop, "_phases", "phase upload", sync=True)
+        clock.events(V, "prologue", "prologue")
+        clock.events(V, "verify_signed5", "kernel")
+        clock.reset()
+        V.LAUNCHES = 0
+        clock.sync()
+        with RssPeak() as rss:
+            t = time.perf_counter()
+            loop.sync_device(np.zeros(In, np.int64), np.zeros(In, np.int64))
+            for w in wn:
+                loop.push(w)
+            phases = loop.build_phases()
+            ts = time.perf_counter()
+            drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+            clock.sync()
+            t_step = time.perf_counter() - ts
+            wall = time.perf_counter() - t
+        ns_launches = V.LAUNCHES
+        ns_ms = {k: clock.excl[k] * 1e3 for k in nat_keys[:-1]}
+        ns_ms["step"] = t_step * 1e3
+        ns_ms.update({k: clock.device_ms(k) for k in ("prologue", "kernel")})
+    finally:
+        clock.restore()
+    decs = _decisions(drv, loop.decode_slot)
+    checks = {
+        "one verify launch": ns_launches == 1,
+        "rejected == 2I": loop.counters["rejected_signature"] == 2 * In,
+        "decisions == phase 3n's": _same_decisions(decs, north_decisions),
+        "all decided 7 in round 0": bool(decs[0].all()
+                                         and (decs[1] == VALUE).all()
+                                         and (decs[2] == 0).all()),
+        "heights advanced": bool((drv.state.height == 1).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"north-star height through the C++ loop: "
+                             f"{checks}")
+    log(f"[native] north-star height through the C++ loop, I={In} V={Vn}, "
+        f"{nn} lanes: wall {wall:.3f} s, {nn / wall:.0f} verified votes/s "
+        f"(phase 3n's Python bridge in this run: {north_rate:.0f}/s; "
+        f">= 1M/s needs < {nn / 1e6:.0f} s); ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ns_ms.items())
+        + f"; {ns_launches} verify launch; host RSS peak {rss.peak:.2f} GiB "
+        f"(sampled; {rss.start:.2f} as it started); wire packed "
+        f"before the window in {t_wire:.1f} s; decisions == phase 3n's; "
+        f"card {smi('name,power.limit')}")
+    del loop, drv, phases, wn
+    torch.cuda.empty_cache()
+    t_all = time.perf_counter() - t_phase
+    log(f"[native] phase 10 {t_all:.1f} s")
+    return {"launches_native_phase": sum(runs[False]["launches"])
+            + sum(runs[True]["launches"]) + ns_launches,
+            "native_sample_lanes": int(len(idx)),
+            "native_sample_mismatches": mism,
+            "native_sample_max_abs_err": max_err,
+            "native_votes_per_s": n / nat_wall,
+            "native_overlapped_votes_per_s": n / ovl_wall,
+            "native_async_depth": runs[True]["depth"],
+            "python_bridge_votes_per_s": n / py_wall,
+            "python_bridge_phase3_votes_per_s": python_rate,
+            "python_bridge_stage_ms": py_ms,
+            "native_stage_ms": runs[False]["ms"],
+            "native_overlapped_stage_ms": runs[True]["ms"],
+            "native_north_star_wall_s": wall,
+            "native_north_star_votes_per_s": nn / wall,
+            "native_north_star_stage_ms": ns_ms,
+            "native_north_star_rss_peak_gib": rss.peak,
+            "native_north_star_rss_start_gib": rss.start,
+            "native_phase_s": t_all}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2324,6 +2878,7 @@ def main(argv=None) -> int:
         f"at {bound.desc}), kernel-only verifies/s="
         f"{n_lanes / ms * 1e3:.0f}; prologue {prologue_ms:.3f} ms, rest of "
         f"the warm step {t_warm * 1e3 - prologue_ms - ms:.3f} ms")
+    phase3_rate = n_lanes / wall
     rows["ed25519_verify_signed5"] = {
         "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "agnes_tpu/crypto/pallas_verify.py:409",
@@ -2335,8 +2890,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- phase 3n: the signed height at the north-star shape ---------------
-    rows["ed25519_verify_signed5"].update(
-        north_star_phase(seeds, pubkeys, sigs, bound))
+    ns_row, north_decisions = north_star_phase(seeds, pubkeys, sigs, bound)
+    rows["ed25519_verify_signed5"].update(ns_row)
 
     # -- phase 4: unsigned heights at the north-star state size -----------
     t0 = time.perf_counter()
@@ -2653,6 +3208,12 @@ def main(argv=None) -> int:
 
     # -- phase 9: the host plane and the benchmark configs ----------------
     rows["ed25519_verify_signed5"].update(host_plane_phase(bound))
+    torch.cuda.empty_cache()
+
+    # -- phase 10: the C++ ingest loop -------------------------------------
+    rows["ed25519_verify_signed5"].update(native_ingest_phase(
+        seeds, pubkeys, sigs, phase3_rate, ns_row["north_star_votes_per_s"],
+        north_decisions))
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -6,7 +6,9 @@ cross-plane replay, one BLS field product and reduce, the
 microbenchmark's chain, a traced checkpoint round trip of the driver and
 the batcher, an unsigned height served through VoteService with its
 metrics, flight recorder and heartbeat, and the host plane: benchmark
-config 1 under --small, a tapped network and an executor snapshot), and
+config 1 under --small, a tapped network and an executor snapshot, and
+one unsigned tick of the C++ ingest loop with its checkpoint, the
+library built from the port's own `core/native/` sources only), and
 never loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
@@ -154,6 +156,32 @@ with tempfile.TemporaryDirectory() as tmp:
 st = sm.State(3, 1, sm.Step.PREVOTE, sm.RoundValue(0, 9))
 assert decode_state(encode_state(st)) == st
 
+from agnes_tpu_torch.bridge import NativeIngestLoop
+from agnes_tpu_torch.core import native_build
+from agnes_tpu_torch.utils import load_native_loop, save_native_loop
+
+nl = NativeIngestLoop(2, 4, n_slots=4, device="cpu")
+nl.sync_device(np.zeros(2, np.int64), np.zeros(2, np.int64))
+c = fx.full_mesh_cols(2, 4, fx.deterministic_seeds(4), 0, 0, 5)
+assert nl.push(pack_wire_votes(*c)) == 8
+nph = nl.build_phases()
+assert len(nph) == 1 and nph[0][1] == 8 and nph[0][0].mask.all()
+with tempfile.TemporaryDirectory() as tmp:
+    save_native_loop(nl, os.path.join(tmp, "nl.npz"))
+    nl2 = load_native_loop(os.path.join(tmp, "nl.npz"), device="cpu")
+assert nl2.decode_slot(0, int(nph[0][0].slots[0, 0])) == 5
+so = native_build.build()
+cpp = [a for a in native_build.command(so) if a.endswith(".cpp")]
+native_dir = os.path.join(os.path.dirname(agnes_tpu_torch.__file__), "core",
+                          "native")
+assert cpp and all(os.path.dirname(a) == native_dir for a in cpp), cpp
+with open("/proc/self/maps") as f:
+    maps = f.read()
+assert so in maps, so
+libs = {ln.split()[-1] for ln in maps.splitlines()
+        if ln.split()[-1].endswith(".so") and "agnes" in ln.split()[-1]}
+assert libs == {so}, libs
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
@@ -169,7 +197,8 @@ if not torch.cuda.is_available():
                  lambda: replay_trace([], 4),
                  lambda: configs.run(3, small=True),
                  lambda: configs.run(1, small=True),
-                 lambda: MB.main(["--lanes", "2048"])):
+                 lambda: MB.main(["--lanes", "2048"]),
+                 lambda: NativeIngestLoop(2, 4, n_slots=4)):
         try:
             make()
         except RuntimeError:
