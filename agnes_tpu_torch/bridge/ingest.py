@@ -29,8 +29,9 @@ rounded up to a power of two (nothing recompiles per shape here), though
 capped at its ladder's top rung.  The serve pieces are the twin's: the dedup columns (`verified`,
 `digest`) riding the pending and held queues, `split_pending_verified`
 / `adopt_pending`, `last_build_keys` and the `max_votes` cap
-(`_defer_pending`).  Waiting for later slices: the dense (sharded) lane
-layout and native-phase adoption (and its evidence-log site).
+(`_defer_pending`), and `adopt_native_phases`, which takes a build the
+native admission drain already densified.  Waiting for a later slice:
+the dense (sharded) lane layout.
 
 Evidence.  Every build retains the votes it screened (`_log`), as the
 twin does: host-verified and unsigned builds after the screen, device-
@@ -699,6 +700,77 @@ class VoteBatcher:
             inst=t(cat.instance.astype(np.int32)),
             val=t(cat.validator.astype(np.int32)),
             real=t(real))
+        return phases, lanes
+
+    def adopt_native_phases(self, cols, ph, pubkeys: np.ndarray):
+        """Adopt a native phase drain: `cols` is the drained WireColumns
+        batch and `ph` the NativePhases that core/native/
+        admission_phases.cpp filled for it — the arrays
+        build_phases_device would have produced for these rows against
+        this window and slot table (the native side bails to a plain
+        drain wherever the Python build would drop, split or spill).
+        Returns (phases, SignedLanes) on the batcher's device, each
+        array uploaded whole.
+
+        What it still owes the Python build, per batch: the slot
+        interning of the (instance, value) pairs the drain gave a fresh
+        slot; the evidence log entry (the arrival-order batch with the
+        nil encoding normalized) and, beside it, the build's pubkey
+        table, so a later `clear_log` drops both together; and
+        `last_build_keys` in the build's phase-grouped lane order.
+
+        The caller (ServePipeline.stage) owns the preconditions: nothing
+        else pending, and ph.heights / base_round / slot_lut equal to
+        the batcher's window and slot table after the sync."""
+        value = cols.value
+        nn = value >= 0
+        if nn.any():
+            # at most one non-nil value an instance (the drain's rule):
+            # a scatter finds it, no sort
+            per_inst = np.full(self.I, -1, np.int64)
+            per_inst[cols.instance[nn]] = value[nn]
+            inst_u = np.nonzero(per_inst >= 0)[0]
+            val_u = per_inst[inst_u]
+            row = ph.slot_lut[inst_u]
+            hit = row == val_u[:, None]
+            want = np.where(hit.any(1), hit.argmax(1),
+                            (row == -1).argmax(1))
+            got = [self.slots.slot_for(int(i), int(v))
+                   for i, v in zip(inst_u, val_u)]
+            if got != want.tolist():       # not an assert: survives -O
+                raise RuntimeError(
+                    "native phase drain and SlotMap disagree on a slot")
+        if (value < _NIL).any():
+            value = np.where(value < 0, _NIL, value)
+        self._log.append(_Batch(
+            cols.instance, cols.validator, cols.height, cols.round_,
+            cols.typ, value, cols.signatures,
+            np.asarray(cols.verified, bool), cols.digest))
+        self._log_pk.append(pubkeys)
+        rows = ph.lane_rows
+        self.last_build_keys = (
+            (cols.digest[rows], cols.instance[rows], cols.height[rows])
+            if cols.digest is not None else None)
+        dev = self.device
+
+        def up(t: torch.Tensor) -> torch.Tensor:
+            # the drain's own host tensors (pinned on the card's path):
+            # a non-blocking upload, or the tensor itself on the CPU
+            return t if dev.type == "cpu" else t.to(dev, non_blocking=True)
+
+        hts = self._to_device(self.heights.astype(np.int32))
+        slots, mask = up(ph.slots), up(ph.mask)
+        phases = [(VotePhase(
+            round=torch.full((self.I,), int(ph.round_), dtype=I32,
+                             device=dev),
+            typ=torch.full((self.I,), int(ph.typ[p]), dtype=I32,
+                           device=dev),
+            slots=slots[p], mask=mask[p], height=hts), int(ph.counts[p]))
+            for p in range(ph.n_phases)]
+        lanes = SignedLanes(
+            pub=up(ph.pub), sig=up(ph.sig), blocks=up(ph.blocks),
+            phase_idx=up(ph.phase_idx), inst=up(ph.inst),
+            val=up(ph.val), real=up(ph.real))
         return phases, lanes
 
     def _build_device_common(self, pubkeys: np.ndarray,

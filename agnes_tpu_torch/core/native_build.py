@@ -3,8 +3,9 @@
 
 `lib()` compiles `agnes_tpu_torch/core/native/*.cpp` (the port's own
 copy: the state machine, tally, validator set, SHA-512, Ed25519, the
-flat C ABI and the ingest loop) into one shared library with g++ at
-first use, and loads it with ctypes.  The library is host code: it runs
+flat C ABI, the ingest loop, and the serve plane's admission queue, its
+shards and its phase drain) into one shared library with g++ at first
+use, and loads it with ctypes.  The library is host code: it runs
 on the host CPU and never touches the card.  The SHA-512
 and SHA-256 round and IV constants are generated into `sha512_k.inc`
 from their FIPS 180-4 definitions, by the integer roots that
@@ -29,8 +30,9 @@ NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "native")
 BUILD_DIR = os.path.join(NATIVE_DIR, "build")
 SOURCES = ["core.cpp", "sha512.cpp", "ed25519.cpp", "capi.cpp",
-           "ingest.cpp"]
-HEADERS = ["core.hpp", "sha512.hpp", "ed25519.hpp"]
+           "ingest.cpp", "admission.cpp", "admission_phases.cpp",
+           "admission_shards.cpp"]
+HEADERS = ["core.hpp", "sha512.hpp", "ed25519.hpp", "admission.hpp"]
 _M64 = (1 << 64) - 1
 
 
@@ -92,7 +94,7 @@ def command(out_path: str) -> List[str]:
     """The g++ command line that builds the library into `out_path`:
     the port's sources only, the generated constants from BUILD_DIR."""
     return (["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall",
-             "-pthread",                  # ingest.cpp's worker thread
+             "-pthread",   # ingest.cpp's worker, admission's mutexes
              "-I", BUILD_DIR, "-o", out_path]
             + [os.path.join(NATIVE_DIR, s) for s in SOURCES])
 

@@ -14,9 +14,14 @@ online path between a network front end and the device driver.
   service.py    the façade: submit / pump / poll_decisions / drain, with
                 metrics, spans and the flight recorder
   bls_lane.py   the BLS aggregate lane: one pairing per vote class
+  native_admission.py
+                the C++ admission queue and its shards (one GIL-releasing
+                call a submit and a drain), whose drain also densifies
+                eligible batches straight into the signed step's arrays
+  threaded.py   ThreadedVoteService: submit and dispatch threads over a
+                VoteService, the caller's submit wait-free
 
-Waiting for later slices: the threaded host and the native admission
-front end (ROADMAP §1 item 4) and mesh serving (item 5).
+Waiting for a later slice: mesh serving (ROADMAP §1 item 5).
 """
 
 from agnes_tpu_torch.serve.batcher import MicroBatcher, ShapeLadder  # noqa: F401
@@ -26,6 +31,10 @@ from agnes_tpu_torch.serve.bls_lane import (  # noqa: F401
     BlsLane,
 )
 from agnes_tpu_torch.serve.cache import VerifiedCache  # noqa: F401
+from agnes_tpu_torch.serve.native_admission import (  # noqa: F401
+    NativeAdmissionQueue,
+    NativeAdmissionShards,
+)
 from agnes_tpu_torch.serve.pipeline import ServePipeline  # noqa: F401
 from agnes_tpu_torch.serve.queue import (  # noqa: F401
     DROP_OLDEST,
@@ -33,6 +42,11 @@ from agnes_tpu_torch.serve.queue import (  # noqa: F401
     AdmissionQueue,
     AdmitResult,
     Inbox,
+    NativePhases,
     WireColumns,
 )
 from agnes_tpu_torch.serve.service import Decision, VoteService  # noqa: F401
+from agnes_tpu_torch.serve.threaded import (  # noqa: F401
+    ThreadedVoteService,
+    threaded_service,
+)

@@ -34,9 +34,10 @@ CUDA kernels of `csrc/bls_fp.cu` on the card (the plain PyTorch versions
 for a lane on the CPU).  Bound to a serve plane (`bind` with the
 service's driver, registry and ladder), each MSM and pairing call is
 observed by the driver's retrace tripwire and each pairing dispatch
-leaves a flight-recorder event.  Not ported: the C++ admission screen
-(`native_screen`, ROADMAP §1 item 4) and the model checker's clone
-surface; the host side is numpy + stdlib."""
+leaves a flight-recorder event.  With `BlsClassTable.native_screen` set
+(a `VoteService(native_admission=True)` sets it) the fold's header
+screens run in C++ (`serve/native_admission.bls_screen`).  Not ported:
+the model checker's clone surface; the host side is numpy + stdlib."""
 
 from __future__ import annotations
 
@@ -261,6 +262,11 @@ class BlsClassTable:
         self.max_classes = int(max_classes)
         self._clock = clock
         self._mu = threading.Lock()
+        #: the fold's range / PoP / quarantine header screens in C++
+        #: (serve/native_admission.bls_screen), the Python loop walking
+        #: only the survivors (which still pay the on-curve decode); the
+        #: taxonomy is the same either way
+        self.native_screen = False
         self.classes: Dict[tuple, AggregateClass] = {}
         self.counters = {
             "bls_shares_submitted": 0, "bls_shares_folded": 0,
@@ -290,26 +296,44 @@ class BlsClassTable:
         reg = self.registry
         # pass 1, LOCK-FREE: range/PoP screens + the on-curve decode
         # (a pure-python Fp2 check per share; holding the mutex across
-        # it would block a concurrent poll() for the whole submit)
+        # it would block a concurrent poll() for the whole submit).
+        # With the native screen the header screens are one C call and
+        # the reject counts a bincount over its codes.
+        if self.native_screen and n:
+            from agnes_tpu_torch.serve.native_admission import bls_screen
+
+            codes = bls_screen(wire_bytes, self.I, reg.V, reg.pop_ok,
+                               reg.quarantined)
+            bc = np.bincount(codes, minlength=5)
+            res["malformed"] += int(bc[1])
+            res["unknown_validator"] += int(bc[2])
+            res["pop_missing"] += int(bc[3])
+            res["quarantined"] += int(bc[4])
+            candidates = np.flatnonzero(codes == 0)
+        else:
+            candidates = None
         staged = []
-        for j in range(n):
+        for j in (range(n) if candidates is None else candidates):
+            j = int(j)
             i, v = int(inst[j]), int(val[j])
-            if not (0 <= i < self.I and 0 <= typ[j] <= 1):
-                res["malformed"] += 1
-                continue
-            if not 0 <= v < reg.V:
-                res["unknown_validator"] += 1
-                continue
-            if not reg.pop_ok[v]:
-                # rogue-key defense: no verified proof of possession,
-                # no aggregation — ever
-                res["pop_missing"] += 1
-                continue
-            if reg.quarantined[v]:
-                # proven-forger liveness defense: this validator's
-                # shares have failed the per-share fallback repeatedly
-                res["quarantined"] += 1
-                continue
+            if candidates is None:
+                if not (0 <= i < self.I and 0 <= typ[j] <= 1):
+                    res["malformed"] += 1
+                    continue
+                if not 0 <= v < reg.V:
+                    res["unknown_validator"] += 1
+                    continue
+                if not reg.pop_ok[v]:
+                    # rogue-key defense: no verified proof of
+                    # possession, no aggregation — ever
+                    res["pop_missing"] += 1
+                    continue
+                if reg.quarantined[v]:
+                    # proven-forger liveness defense: this validator's
+                    # shares have failed the per-share fallback
+                    # repeatedly
+                    res["quarantined"] += 1
+                    continue
             share = shares[j].tobytes()
             if decode:
                 try:

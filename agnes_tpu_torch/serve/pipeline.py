@@ -42,10 +42,18 @@ Signed builds keep their exact lane count, capped at the ladder's top
 rung; the retrace tripwire keys each on the smallest rung that holds it
 (analysis/retrace.py), so no padding lane does verify work.
 
-Not ported yet: the native zero-copy adopt branch of `stage` and
-`native_phase_state` (ROADMAP §1 item 4), the dense dispatch mode with
-the mesh (item 5), and the pod's padding primitives (`pad_staged_to`,
-`stage_padding`, item 6).
+Native adoption: behind a native admission queue
+(serve/native_admission.py) the drain can already have densified a batch
+into the signed step's phase planes and lane arrays, against the window
+and slot table `native_phase_state` predicts.  `stage` adopts such a
+build (VoteBatcher.adopt_native_phases: no add_arrays, no
+build_phases_device) when the window and slot table it assumed are the
+ones just synced and nothing else is pending; otherwise it builds the
+plain columns the Python way.  `native_phase_builds` counts adoptions.
+
+Not ported yet: the dense dispatch mode with the mesh (ROADMAP §1 item
+5), and the pod's padding primitives (`pad_staged_to`, `stage_padding`,
+item 6).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import torch
 from agnes_tpu_torch.device.encoding import I32, stack_tuples
 from agnes_tpu_torch.device.step import SignedLanes, VotePhase
 from agnes_tpu_torch.serve.batcher import ShapeLadder
+from agnes_tpu_torch.serve.queue import PhaseBuildState
 from agnes_tpu_torch.types import NIL_ID
 
 
@@ -170,6 +179,11 @@ class ServePipeline:
         # signed builds above the ladder's top rung: prevented by the
         # max_votes cap, kept as the regression alarm
         self.offladder_builds = 0
+        # builds adopted straight from a native phase drain (no
+        # add_arrays, no build_phases_device), and the pubkey table
+        # handed to the drains (one host copy, not one a drain)
+        self.native_phase_builds = 0
+        self._pk_np: Optional[np.ndarray] = None
         # every (kind, P[, rung]) warmup() launched
         self.warmed_keys: set = set()
 
@@ -209,6 +223,41 @@ class ServePipeline:
         self.batcher.sync_device(base, hts)
         return hts
 
+    def native_phase_state(self) -> Optional[PhaseBuildState]:
+        """The PhaseBuildState a native phase drain densifies against,
+        or None where this deployment cannot adopt one: no window
+        predictor (the drain runs before _sync_window, so only a
+        predicted window avoids reading the card), unsigned, or MSM
+        verify mode.  The service wires this as the native queue's
+        `phase_state` hook; it runs once a drain, on the drain's thread.
+
+        The slot table is the batcher's as the predicted window will
+        hold it: rows of instances whose height advances are empty,
+        since the sync resets them.  stage() adopts only if the window
+        and that table are what the sync produced; correctness never
+        rests on the prediction, only the fast path does."""
+        if (self.window_predictor is None or self.pubkeys is None
+                or self.batcher.verify_mode != "lanes"):
+            return None
+        base, hts = self.window_predictor()
+        hts = np.asarray(hts, np.int64)
+        if self._pk_np is None:
+            self._pk_np = np.ascontiguousarray(
+                np.asarray(self.pubkeys), np.uint8)
+        lut = self.batcher.slots.dense.copy()
+        lut[hts > self.batcher.heights] = -1
+        return PhaseBuildState(
+            heights=hts,
+            base_round=np.asarray(base, np.int64),
+            window=self.batcher.W,
+            slot_lut=lut,
+            pubkeys=self._pk_np,
+            n_validators=self.batcher.V,
+            lane_floor=0,                 # exact lanes (module docstring)
+            max_votes=self.ladder.max_rung,
+            phase_offset=1,
+            pin_memory=self.driver.device.type == "cuda")
+
     def _entry_phase(self, heights: np.ndarray) -> VotePhase:
         """The round-entry phase from host heights: constants made on
         the card and the heights by a pinned non-blocking upload, so
@@ -246,13 +295,34 @@ class ServePipeline:
             if self.batcher.pending_votes:
                 staged_any |= self._build_all(hts, self._clock())
             if n_new:
-                self.batcher.add_arrays(batch.instance, batch.validator,
-                                        batch.height, batch.round_,
-                                        batch.typ, batch.value,
-                                        batch.signatures,
-                                        verified=batch.verified,
-                                        digest=batch.digest)
-                staged_any |= self._build_all(hts, batch.t_first)
+                ph = batch.native_phases
+                bat = self.batcher
+                if (ph is not None and bat.pending_votes == 0
+                        and self.pubkeys is not None
+                        and bat.verify_mode == "lanes"
+                        and np.array_equal(ph.heights, bat.heights)
+                        and np.array_equal(ph.base_round, bat.base_round)
+                        and np.array_equal(ph.slot_lut, bat.slots.dense)):
+                    # the drain densified this batch against the window
+                    # and slot table just synced: adopt it.  Anything
+                    # else (a rotation between drain and stage, held
+                    # re-entry that interned a value, a mode flip)
+                    # builds the plain columns, which are always filled
+                    phases, lanes = bat.adopt_native_phases(
+                        batch, ph, self.pubkeys)
+                    keys = (bat.last_build_keys
+                            if self.cache is not None else None)
+                    self.native_phase_builds += 1
+                    staged_any |= self._stage_signed(
+                        phases, lanes, hts, batch.t_first, keys,
+                        native=True)
+                else:
+                    bat.add_arrays(batch.instance, batch.validator,
+                                   batch.height, batch.round_, batch.typ,
+                                   batch.value, batch.signatures,
+                                   verified=batch.verified,
+                                   digest=batch.digest)
+                    staged_any |= self._build_all(hts, batch.t_first)
         if not staged_any:
             self.noop_ticks += 1
         return staged_any
@@ -312,10 +382,11 @@ class ServePipeline:
         return self._stage_signed(phases, lanes, hts, t_first, keys)
 
     def _stage_signed(self, phases, lanes, hts: np.ndarray,
-                      t_first: float, keys) -> bool:
-        """The staging tail: off-ladder alarm, tick lifecycle, entry
-        policy, staged-FIFO append.  `phases` is [(VotePhase,
-        n_votes)]; lanes may be None (host-verified/unsigned)."""
+                      t_first: float, keys, native: bool = False) -> bool:
+        """The staging tail of _build_one and stage()'s native adopt
+        branch: off-ladder alarm, tick lifecycle, entry policy,
+        staged-FIFO append.  `phases` is [(VotePhase, n_votes)]; lanes
+        may be None (host-verified/unsigned)."""
         n_lanes = int(lanes.pub.shape[0]) if lanes is not None else None
         if n_lanes is not None and n_lanes > self.ladder.max_rung:
             self.offladder_builds += 1
@@ -325,9 +396,10 @@ class ServePipeline:
         rung = (self.ladder.rung_for(n_lanes)
                 if n_lanes is not None and n_lanes <= self.ladder.max_rung
                 else n_lanes)
+        extra = {"native": True} if native else {}
         self._event("tick_open", tick=tick,
                     votes=sum(n for _, n in phases), rung=rung,
-                    lanes=n_lanes, signed=lanes is not None)
+                    lanes=n_lanes, signed=lanes is not None, **extra)
         # signed builds always prepend the entry phase (their lanes were
         # packed with phase_offset=1); unsigned builds when the window
         # heights advanced past the last entry (or on the first

@@ -78,9 +78,12 @@ class WireColumns(NamedTuple):
     digest: Optional[np.ndarray]  # [N, 32] uint8 wire SHA-256s (cache
     #                               attached) or None (dedup off)
     t_first: float             # earliest admission instant in the batch
-    #: the native drain's phase/lane arrays for this batch; always None
-    #: until the native admission front end is ported (ROADMAP §1 item 4)
-    native_phases: Optional[object] = None
+    #: a NativePhases bundle when the native drain already built this
+    #: batch's phase/lane arrays (None on the Python queue and on a
+    #: drain that bailed to the Python path).  The columns above are
+    #: filled either way: the adopter logs them as evidence, and a
+    #: window that moved before stage falls back to add_arrays on them.
+    native_phases: Optional["NativePhases"] = None
 
     def __len__(self) -> int:
         return len(self.instance)
@@ -89,19 +92,58 @@ class WireColumns(NamedTuple):
 class PhaseBuildState(NamedTuple):
     """Inputs a native phase drain needs to replay the batcher's
     device-verify build: the window the batch will be staged against
-    (predicted) plus the value-table and ladder geometry.  Kept for the
-    native admission front end (ROADMAP §1 item 4); nothing builds one
-    yet."""
+    (predicted: the drain runs before ServePipeline._sync_window) plus
+    the value-table and ladder geometry.  Built by
+    ServePipeline.native_phase_state()."""
 
     heights: np.ndarray        # [I] int64 window heights (predicted)
     base_round: np.ndarray     # [I] int64 window base rounds
     window: int                # rounds per window (W)
-    slot_lut: np.ndarray       # [I, S] int64 dense SlotMap export
+    slot_lut: np.ndarray       # [I, S] int64 dense SlotMap export as the
+    #                            predicted window will hold it (rows of
+    #                            advancing instances empty)
     pubkeys: np.ndarray        # [V, 32] uint8 validator keys
     n_validators: int
-    lane_floor: int            # ladder.min_rung (pad floor)
+    lane_floor: int            # pad floor (0: exact lanes, the port's
+    #                            served builds)
     max_votes: int             # ladder.max_rung (defer threshold)
     phase_offset: int          # entry-phase slot count (1)
+    pin_memory: bool = False   # lane arrays in pinned host memory (the
+    #                            card's path: one non-blocking upload)
+
+
+@dataclass
+class NativePhases:
+    """The device-build arrays a native phase drain produced: exactly
+    VoteBatcher.build_phases_device's layout, filled by
+    core/native/admission_phases.cpp into host tensors (pinned when the
+    pipeline serves a card) that the adopter uploads whole, with no
+    per-record Python work.  A drain allocates its own tensors, so no
+    buffer is reused while an upload from it may be in flight.
+    `heights` / `base_round` / `slot_lut` echo the PhaseBuildState the
+    build assumed, so the adopter can check the prediction."""
+
+    n_phases: int
+    n_lanes: int               # real lanes (== batch length)
+    n_pad: int                 # lanes built (n_lanes unless floored)
+    round_: int                # the single round of the batch
+    typ: np.ndarray            # [n_phases] int64 phase vote types
+    counts: np.ndarray         # [n_phases] int64 votes per phase
+    slots: object              # [n_phases, I, V] int32 tensor
+    mask: object               # [n_phases, I, V] bool tensor
+    pub: object                # [n_pad, 32] int32 tensor
+    sig: object                # [n_pad, 64] int32 tensor
+    blocks: object             # [n_pad, 1, 32] int32 tensor (the uint32
+    #                            SHA-512 words' bits)
+    phase_idx: object          # [n_pad] int32 tensor
+    inst: object               # [n_pad] int32 tensor
+    val: object                # [n_pad] int32 tensor
+    real: object               # [n_pad] bool tensor
+    lane_rows: np.ndarray      # [n_lanes] int64 lane -> drained-row
+    #                            permutation (the phase-grouped order)
+    heights: np.ndarray        # [I] int64 window the build assumed
+    base_round: np.ndarray     # [I] int64
+    slot_lut: np.ndarray       # [I, S] int64 slot LUT the build assumed
 
 
 def _record_digests(wire_bytes, idx: np.ndarray) -> np.ndarray:

@@ -21,9 +21,14 @@ latency histograms) and, given a Tracer, per-stage spans; given a
 FlightRecorder, ticks, rejects, dispatches, retrace trips and each
 kernel's first nvcc build (the port's only compile) land in its ring.
 
+`native_admission=True` swaps the admission queue for its C++ twin
+(serve/native_admission.py; `native_shards=N` for N instance-range
+shards), whose drain also densifies eligible batches straight into the
+signed step's arrays for the pipeline to adopt.  Decisions are the same
+either way; serve/threaded.py runs a service on socket-facing threads.
+
 Runs on the card unless built over a CPU driver and batcher.  Not ported
-yet: the C++ admission front end (`native_admission`, `native_shards`)
-and the threaded host (ROADMAP §1 item 4), and mesh drivers (item 5).
+yet: mesh drivers (ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
@@ -63,6 +68,15 @@ from agnes_tpu_torch.utils.metrics import (
     SERVE_E2E_LATENCY_S,
     SERVE_EVICTED,
     SERVE_INFLIGHT,
+    SERVE_NATIVE_DENSIFY_WALL_S,
+    SERVE_NATIVE_DRAIN_WALL_S,
+    SERVE_NATIVE_INBOX_DEPTH,
+    SERVE_NATIVE_PHASE_BUILDS,
+    SERVE_NATIVE_REJECTS_FAIRNESS,
+    SERVE_NATIVE_REJECTS_MALFORMED,
+    SERVE_NATIVE_REJECTS_OVERFLOW,
+    SERVE_NATIVE_SHARD_DEPTH_PREFIX,
+    SERVE_NATIVE_SHARD_REJECTS_PREFIX,
     SERVE_NOOP_TICKS,
     SERVE_PREVERIFIED_DISPATCHED,
     SERVE_QUEUE_DEPTH,
@@ -126,6 +140,8 @@ class VoteService:
                  window_predictor=None,
                  dedup_cache=None,
                  bls_lane=None,
+                 native_admission: bool = False,
+                 native_shards: int = 1,
                  metrics: Optional[Metrics] = None,
                  tracer=None,
                  flightrec=None,
@@ -138,7 +154,18 @@ class VoteService:
         `ShapeLadder.plan(I, V)` at the driver's `hbm_budget_bytes` or
         the card's memory; a CPU service is given a ladder, or a driver
         with a budget.  `flightrec` (utils/flightrec.FlightRecorder) is
-        also handed to the driver."""
+        also handed to the driver.
+
+        `native_admission` swaps the admission queue for its C++ twin
+        (serve/native_admission.NativeAdmissionQueue): one GIL-releasing
+        call per submit and per drain, the BLS table's header screens
+        native too, and, with a window predictor on a signed lanes-mode
+        deployment, drains that fill the signed step's arrays for the
+        pipeline to adopt.  `native_shards` > 1 (needs
+        `native_admission`, I % native_shards == 0 and capacity %
+        native_shards == 0) splits it into instance-range shards behind
+        one submit fan-in and a merged drain.  Both change throughput,
+        never decisions."""
         I, V = driver.I, driver.V
         if dedup_cache is not None and dedup_cache is not False:
             from agnes_tpu_torch.serve.cache import VerifiedCache
@@ -169,11 +196,45 @@ class VoteService:
         # default: two full both-classes ticks — a burst fits while one
         # tick is in flight; overload surfaces as rejects
         capacity = capacity if capacity is not None else 4 * I * V
-        self.queue = AdmissionQueue(
+        self.native_admission = bool(native_admission)
+        self.native_shards = int(native_shards)
+        if self.native_shards < 1:
+            raise ValueError(
+                f"native_shards must be >= 1: {native_shards}")
+        if self.native_shards > 1 and not self.native_admission:
+            raise ValueError(
+                "native_shards > 1 requires native_admission=True "
+                "(sharding is a property of the C++ front end)")
+        qkw = {}
+        if self.native_shards > 1:
+            from agnes_tpu_torch.serve.native_admission import (
+                NativeAdmissionShards as queue_cls,
+            )
+
+            qkw["n_shards"] = self.native_shards
+        elif self.native_admission:
+            from agnes_tpu_torch.serve.native_admission import (
+                NativeAdmissionQueue as queue_cls,
+            )
+        else:
+            queue_cls = AdmissionQueue
+        # one construction site: the queues are byte-compatible twins
+        self.queue = queue_cls(
             I, capacity, instance_cap=instance_cap,
             policy=overload_policy, cache=self.cache,
             bls_table=(bls_lane.table if bls_lane is not None else None),
-            clock=clock)
+            clock=clock, **qkw)
+        self._shard_depth_names = (
+            [SERVE_NATIVE_SHARD_DEPTH_PREFIX + str(s)
+             for s in range(self.native_shards)]
+            if self.native_shards > 1 else [])
+        if self.native_admission:
+            self.queue.drain_hist = self.metrics.histogram(
+                SERVE_NATIVE_DRAIN_WALL_S)
+            self.queue.densify_hist = self.metrics.histogram(
+                SERVE_NATIVE_DENSIFY_WALL_S)
+            if bls_lane is not None:
+                bls_lane.table.native_screen = True
         self.queue.wait_hist = self.metrics.histogram(SERVE_ADMIT_WAIT_S)
         self._h_close_age = self.metrics.histogram(SERVE_BATCH_CLOSE_AGE_S)
         self._h_e2e = self.metrics.histogram(SERVE_E2E_DECISION_S)
@@ -186,6 +247,10 @@ class VoteService:
                                       bls_lane=bls_lane, tracer=tracer,
                                       metrics=self.metrics,
                                       flightrec=flightrec, clock=clock)
+        if self.native_admission:
+            # the drain fills the signed step's arrays against the
+            # pipeline's predicted window (None: a plain drain)
+            self.queue.phase_state = self.pipeline.native_phase_state
         if bls_lane is not None:
             bls_lane.bind(driver, metrics=self.metrics, ladder=ladder)
         self.driver = driver
@@ -245,7 +310,22 @@ class VoteService:
                 "reject", overflow=res.rejected_overflow,
                 fairness=res.rejected_fairness,
                 malformed=res.rejected_malformed)
-        m.gauge(SERVE_QUEUE_DEPTH, self.queue.depth)
+        depth = self.queue.depth
+        if self.native_admission:
+            # the native screens' taxonomy and resident depth beside the
+            # shared serve counters (counter writes only on a reject:
+            # this is the per-submit hot path)
+            if res.rejected:
+                m.count(SERVE_NATIVE_REJECTS_OVERFLOW,
+                        res.rejected_overflow)
+                m.count(SERVE_NATIVE_REJECTS_FAIRNESS,
+                        res.rejected_fairness)
+                m.count(SERVE_NATIVE_REJECTS_MALFORMED,
+                        res.rejected_malformed)
+            m.gauge(SERVE_NATIVE_INBOX_DEPTH, depth)
+            for s, name in enumerate(self._shard_depth_names):
+                m.gauge(name, self.queue.shard_depth(s))
+        m.gauge(SERVE_QUEUE_DEPTH, depth)
         return res
 
     def submit_bls(self, wire_bytes) -> AdmitResult:
@@ -329,6 +409,21 @@ class VoteService:
             for b in done:
                 self._h_e2e.record(now - b.t_first, b.n_votes)
         m.gauge(SERVE_INFLIGHT, 0)
+        if self.native_admission:
+            # adopted native builds and, sharded, the shard-summed reject
+            # taxonomy, reconciled into the registry at the sync point
+            delta = (self.pipeline.native_phase_builds
+                     - m.counters.get(SERVE_NATIVE_PHASE_BUILDS, 0))
+            if delta > 0:
+                m.count(SERVE_NATIVE_PHASE_BUILDS, delta)
+            if self.native_shards > 1:
+                c = self.queue.counters
+                for cause in ("overflow", "fairness", "malformed"):
+                    name = SERVE_NATIVE_SHARD_REJECTS_PREFIX + cause
+                    delta = (c["rejected_" + cause]
+                             - m.counters.get(name, 0))
+                    if delta > 0:
+                        m.count(name, delta)
         m.gauge(SERVE_ADMIT_RATE, m.interval_rate(SERVE_ADMITTED))
         m.gauge(SERVE_DISPATCH_RATE,
                 m.interval_rate(SERVE_VOTES_DISPATCHED))
@@ -428,6 +523,11 @@ class VoteService:
             "preverified_votes": self.pipeline.preverified_votes,
             "serve_cache": (self.cache.snapshot()
                             if self.cache is not None else None),
+            # the native front end's counters and depth (None: Python
+            # admission) and the builds adopted from its phase drain
+            "native_admission": (self.queue.native_snapshot()
+                                 if self.native_admission else None),
+            "native_phase_builds": self.pipeline.native_phase_builds,
             "bls": (self.bls.snapshot() if self.bls is not None
                     else None),
             "bls_votes": self.pipeline.bls_votes,

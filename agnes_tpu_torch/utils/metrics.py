@@ -277,8 +277,9 @@ SERVE_BATCH_CLOSE_AGE_S = "serve_batch_close_age_s"
 SERVE_DISPATCH_WALL_S = "serve_dispatch_wall_s"
 SERVE_SETTLE_WALL_S = "serve_settle_wall_s"
 SERVE_E2E_DECISION_S = "serve_submit_to_decision_s"
-#: threaded-host names (the threaded host waits for ROADMAP §1 item 4;
-#: the names are the twin's)
+#: the threaded host (serve/threaded.py): inbox depth (gauge), blobs
+#: refused by a full or closed inbox, loop threads that died, and each
+#: loop's busy share of the gauge window (gauges)
 SERVE_INBOX_DEPTH = "serve_inbox_depth"
 SERVE_INBOX_DROPPED = "serve_inbox_dropped"          # counter
 SERVE_THREAD_FAILURES = "serve_thread_failures"      # counter
@@ -320,6 +321,33 @@ SERVE_PREVERIFIED_DISPATCHED = "serve_preverified_votes_dispatched"
 SERVE_BLS_AGG_CLASSES = "serve_bls_agg_classes"
 SERVE_BLS_FALLBACK_VOTES = "serve_bls_fallback_votes"
 SERVE_BLS_POP_MISSING = "bls_pop_missing"
+#: the native admission front end (serve/native_admission.py):
+#:   serve_native_inbox_depth     gauge — records resident in the C++
+#:                                admission queue
+#:   serve_native_drain_wall_s    histogram — wall of one GIL-releasing
+#:                                drain call
+#:   serve_native_rejects_<cause> counters (overflow / fairness /
+#:                                malformed), the native screens' reject
+#:                                taxonomy beside the serve_rejected_*
+#:                                counters
+#:   serve_native_densify_wall_s  histogram — wall of the drains that
+#:                                also filled the phase/lane arrays
+#:   serve_native_phase_builds    counter — builds the pipeline adopted
+#:                                from a native phase drain
+#:   serve_native_shard_depth_<s> gauges — per-shard resident depth
+#:   serve_native_shard_rejects_<cause> counters — the reject taxonomy
+#:                                summed across shards
+SERVE_NATIVE_INBOX_DEPTH = "serve_native_inbox_depth"
+SERVE_NATIVE_DRAIN_WALL_S = "serve_native_drain_wall_s"
+SERVE_NATIVE_REJECTS_PREFIX = "serve_native_rejects_"
+SERVE_NATIVE_REJECTS_OVERFLOW = SERVE_NATIVE_REJECTS_PREFIX + "overflow"
+SERVE_NATIVE_REJECTS_FAIRNESS = SERVE_NATIVE_REJECTS_PREFIX + "fairness"
+SERVE_NATIVE_REJECTS_MALFORMED = (SERVE_NATIVE_REJECTS_PREFIX
+                                  + "malformed")
+SERVE_NATIVE_DENSIFY_WALL_S = "serve_native_densify_wall_s"
+SERVE_NATIVE_PHASE_BUILDS = "serve_native_phase_builds"
+SERVE_NATIVE_SHARD_DEPTH_PREFIX = "serve_native_shard_depth_"
+SERVE_NATIVE_SHARD_REJECTS_PREFIX = "serve_native_shard_rejects_"
 #: per-kernel first-build wall gauges, `compile_ms_<kernel>`: the port's
 #: only compile is a kernel's nvcc build (cuda_build.py)
 COMPILE_MS_PREFIX = "compile_ms_"

@@ -220,12 +220,39 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      the stages, the wall and the host's peak RSS sampled while it runs
      (`RssPeak`).  Votes/s of (a), (b), (c) and (d) are logged beside
      phase 3's (`native_ingest_phase`).
+  11. native admission and the threaded host (`serve/native_admission.py`
+     over the port's C++ admission queue, `serve/threaded.py`): phase 8's
+     three signed heights at I = 1,024 x V = 1,000 (validator 7 forged in
+     both classes) served four ways, no warmup: (a) a VoteService with
+     Python admission, as phase 8 serves them, whose dispatch stream is
+     the reference; (b) `VoteService(native_admission=True)`, whose C++
+     drain densifies each height straight into the signed step's phase
+     and lane arrays (pinned host memory, one upload), adopted by the
+     pipeline; (c) the same with `native_shards=4`; (d)
+     `threaded_service(...)` with native admission, four producer threads
+     submitting each height in blobs of 16,384 records.  The window
+     predictor says height k for the k-th build.  Every run must end
+     with phase 8's served driver's state, tally, decisions and rejected
+     lanes, leaf for leaf, poll each decision once, make one verify
+     launch a height and dispatch every vote once (submitted = admitted
+     + rejected); (b)-(d) must adopt every height (`native_phase_builds`
+     == 3) and dispatch (a)'s stream leaf for leaf; the verify kernel
+     must equal plain on 16,384 sampled lanes of (b)'s last adopted
+     build, every forged lane among them.  It logs each run's served
+     votes/s, per tick the submit, drain, stage, host launch and step ms,
+     the `serve_native_drain_wall_s` histogram, the overlap share (the
+     steps' device time spent while the host drained or staged), the
+     device peak against the top rung's plan, (d)'s busy shares of its
+     submit and dispatch threads, and the phase's wall
+     (`native_serve_phase`).
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
 1 with `launches_configs_phase`, config 2's launch, and its times at
 that launch's 200 lanes, and with `launches_native_phase`, the C++
-loop's launches in phase 10, and that phase's stage tables),
+loop's launches in phase 10, and that phase's stage tables, and with
+`launches_native_serve_phase`, phase 11's launches, and its runs'
+numbers under `native_serve`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -263,6 +290,9 @@ I_DEDUP = 64                       # phase 8: the dedup serve's instances
 N_SERVE_SAMPLE = 16_384            # phase 8: served lanes held against plain
 NATIVE_HEIGHTS = 3                 # phase 10: one warm height, then two timed
 N_NATIVE_SAMPLE = 16_384           # phase 10: the loop's lanes held against plain
+NATIVE_SERVE_SHARDS = 4            # phase 11: the sharded run's shards
+NATIVE_SERVE_PRODUCERS = 4         # phase 11: threads feeding the threaded host
+NATIVE_SERVE_CHUNK = 16_384        # phase 11: records a submitted blob
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -1653,7 +1683,14 @@ def serve_signed_phase(seeds, pubkeys, classes) -> dict:
     log(f"[serve] no sync point between the first submit and drain "
         f"(sync debug mode \"error\"); flight events {flight.counts()}")
     tick = profiled_tick(wire, pubkeys)
-    return {"launches_serve_phase": warm_launches + serve_launches,
+    # phase 11 serves the same heights and is held against this driver
+    ref = {"leaves": _leaves(drv),
+           "stats": {f: getattr(drv.stats, f).copy()
+                     for f in ("decided", "decision_value",
+                               "decision_round")},
+           "rejected": rep["rejected_signature_device"]}
+    return {"_ref": ref,
+            "launches_serve_phase": warm_launches + serve_launches,
             "launches_serve_warmup": warm_launches,
             "launches_serve_dispatch": serve_launches,
             "serve_votes_per_s": n_votes / wall,
@@ -2554,6 +2591,368 @@ def native_ingest_phase(seeds, pubkeys, sigs, python_rate, north_rate,
             "native_phase_s": t_all}
 
 
+def _sample_vs_plain(lanes, seed: int):
+    """The verify kernel against plain on N_SERVE_SAMPLE lanes of one
+    dispatched build, every forged lane among them: (lanes, sampled,
+    mismatches, max_abs_err, forged sampled, verdicts right)."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.crypto import verify as V
+
+    val = lanes.val.cpu().numpy()
+    args, ok_s = V.prologue(lanes.pub, lanes.sig, lanes.blocks)
+    got = V.verify_signed5(*args)
+    rng = np.random.RandomState(seed)
+    forged = np.nonzero(val == FORGED)[0]
+    pick = rng.choice(np.nonzero(val != FORGED)[0],
+                      N_SERVE_SAMPLE - len(forged), replace=False)
+    idx = torch.from_numpy(np.sort(np.concatenate([pick, forged]))).to(
+        lanes.val.device)
+    plain = V.verify_plain(*[a[..., idx].contiguous() for a in args])
+    mism, max_err = compare(got[idx], plain)
+    ok = ((got[idx] > 0) & ok_s[idx]).cpu().numpy()
+    is_forged = val[idx.cpu().numpy()] == FORGED
+    right = not ok[is_forged].any() and bool(ok[~is_forged].all())
+    return (int(val.shape[0]), len(idx), mism, max_err,
+            int(is_forged.sum()), right)
+
+
+def _lane_order(lanes, I, V):
+    """The permutation that sorts a SignedLanes' lanes by (phase,
+    instance, validator), on the card."""
+    import torch
+
+    pub, sig, blocks, phase_idx, inst, val, real = lanes
+    key = (phase_idx.long() * I + inst.long()) * V + val.long()
+    return torch.argsort(key, stable=True)
+
+
+def native_serve_phase(seeds, pubkeys, sigs, ref) -> dict:
+    """Phase 11: native admission and the threaded host, phase 8's three
+    signed heights served four ways; see the module docstring.  `sigs`
+    are phase 8's signatures by (height, class), `ref` its served
+    driver's leaves, decisions and rejected lanes.  Returns the numbers
+    for the verify kernel's line."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import VoteService, threaded_service
+    from agnes_tpu_torch.types import VoteType
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.metrics import (SERVE_DISPATCH_BUSY_FRAC,
+                                               SERVE_NATIVE_DRAIN_WALL_S,
+                                               SERVE_SUBMIT_BUSY_FRAC)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    I, Vn, H = I_SIGNED, V_SIGNED, SERVE_HEIGHTS
+    n = 2 * I * Vn
+    classes = (int(VoteType.PREVOTE), int(VoteType.PRECOMMIT))
+    t0 = time.perf_counter()
+    wire = [b"".join(pack_wire_votes(*fx.full_mesh_cols(
+        I, Vn, seeds, h, typ, VALUE, sigs=sigs[h, typ])) for typ in classes)
+        for h in range(H)]
+    step = NATIVE_SERVE_CHUNK * 96
+    chunks = [[w[k:k + step] for k in range(0, len(w), step)] for w in wire]
+    log(f"[native serve] fixture: phase 8's {H} heights of wire, "
+        f"{len(chunks[0])} chunks of {NATIVE_SERVE_CHUNK} records a height "
+        f"for the threaded run: {time.perf_counter() - t0:.1f} s")
+    plan = None
+    stream_ref = []          # the Python-admission run's dispatch stream
+    out = {}
+
+    def serve(name, native, shards=1, threaded=False):
+        nonlocal plan
+        drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                           device=dev)
+        bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+        kw = dict(target_votes=n, native_admission=native,
+                  native_shards=shards)
+        if threaded:
+            # size closes only (one batch a height); room for every
+            # height, which the producers may queue before the drains
+            tsvc = threaded_service(
+                drv, bat, pubkeys, inbox_capacity=H * len(chunks[0]),
+                max_delay_s=1e9, capacity=H * n, **kw)
+            svc = tsvc.service
+        else:
+            svc = VoteService(drv, bat, pubkeys, max_delay_s=0.0, **kw)
+        if plan is None:
+            plan = budget.plan_lane_verify(
+                svc.ladder.max_rung, hbm_bytes=budget.device_hbm_bytes(dev))
+        # batch k is height k: the predictor reads the pipeline's build
+        # count, which is k from the drain of batch k to its stage
+        pipe = svc.pipeline
+        pipe.window_predictor = lambda: (np.zeros(I, np.int64),
+                                         np.full(I, pipe.tick_seq,
+                                                 np.int64))
+        ivs = {"drain": [], "stage": [], "launch": [], "submit": []}
+        steps, kept, shape_bad = [], {}, []
+        mism = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    ivs[key].append((t, time.perf_counter()))
+            return run
+
+        step_async = drv.step_async
+
+        def dispatch(phases, lanes=None, exts=None, tick=None):
+            # the stream against the Python-admission run's, on the card
+            # (counted into `mism`, read after the run: no sync here)
+            k = len(steps)
+            leaves = [x for p in phases for x in p] + list(lanes or ())
+            if name == "python":
+                stream_ref.append([x.clone() for x in leaves])
+            elif k >= len(stream_ref) or len(leaves) != len(stream_ref[k]) \
+                    or any(a.shape != b.shape or a.dtype != b.dtype
+                           for a, b in zip(leaves, stream_ref[k])):
+                shape_bad.append(k)
+            else:
+                ref_leaves = stream_ref[k]
+                nl = len(lanes) if threaded and lanes is not None else 0
+                for a, b in zip(leaves[:len(leaves) - nl],
+                                ref_leaves[:len(leaves) - nl]):
+                    mism.add_((a != b).sum())
+                if nl:
+                    # four producers interleave a height's blobs, so the
+                    # lanes arrive in another order: compare them sorted
+                    # by (phase, instance, validator), a key unique to a
+                    # lane, one field at a time
+                    oa = _lane_order(leaves[-nl:], I, Vn)
+                    ob = _lane_order(ref_leaves[-nl:], I, Vn)
+                    for a, b in zip(leaves[-nl:], ref_leaves[-nl:]):
+                        mism.add_((a[oa] != b[ob]).sum())
+            if k == H - 1 and name == "native":
+                kept["lanes"] = lanes
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t = time.perf_counter()
+            ev[0].record()
+            res = step_async(phases, lanes, exts, tick=tick)
+            ev[1].record()
+            ivs["launch"].append((t, time.perf_counter()))
+            steps.append(ev)
+            return res
+
+        drv.step_async = dispatch
+        pipe.stage = timed("stage", pipe.stage)
+        svc.queue.drain = timed("drain", svc.queue.drain)
+        # the micro-batcher's polls that closed nothing (the threaded
+        # dispatch loop's idle polls: queue depth, the deadline's
+        # oldest_ts)
+        idle = {"n": 0, "s": 0.0}
+        poll = svc.micro.poll
+
+        def counted_poll(*a, **k):
+            t = time.perf_counter()
+            b = poll(*a, **k)
+            if b is None:
+                idle["n"] += 1
+                idle["s"] += time.perf_counter() - t
+            return b
+
+        svc.micro.poll = counted_poll
+        torch.cuda.synchronize()
+        anchor = torch.cuda.Event(enable_timing=True)
+        anchor.record()
+        torch.cuda.synchronize()
+        t_anchor = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        V.LAUNCHES = 0
+        polled = []
+        busy = None
+        t0 = time.perf_counter()
+        if threaded:
+            for h in range(H):
+                def producer(p, h=h):
+                    for c in chunks[h][p::NATIVE_SERVE_PRODUCERS]:
+                        if not tsvc.submit(c):
+                            raise AssertionError("the inbox refused a "
+                                                 "chunk")
+
+                ts = [threading.Thread(target=producer, args=(p,),
+                                       daemon=True)
+                      for p in range(NATIVE_SERVE_PRODUCERS)]
+                t1 = time.perf_counter()
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=300)
+                if any(t.is_alive() for t in ts):
+                    raise AssertionError("a producer thread hung")
+                ivs["submit"].append((t1, time.perf_counter()))
+                polled += tsvc.poll_decisions()
+            # every height dispatched by the loops before the drain
+            t_end = time.perf_counter() + 600
+            while pipe.dispatched_votes < H * n:
+                if time.perf_counter() > t_end or tsvc.failure is not None:
+                    raise AssertionError(
+                        f"threaded: {pipe.dispatched_votes} of {H * n} "
+                        f"votes dispatched ({tsvc.failure!r})")
+                time.sleep(0.005)
+            rep = tsvc.drain(timeout_s=300)
+            wall = time.perf_counter() - t0
+            busy = {k: s / wall for k, s in tsvc.busy_seconds().items()}
+        else:
+            for h in range(H):
+                t1 = time.perf_counter()
+                res = svc.submit(wire[h])
+                ivs["submit"].append((t1, time.perf_counter()))
+                if res.accepted != n:
+                    raise AssertionError(f"{name}: height {h} not admitted "
+                                         f"whole: {res}")
+                svc.pump()
+                polled += svc.poll_decisions()
+            rep = svc.drain()
+            wall = time.perf_counter() - t0
+        launches = V.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() - before
+        polled += rep["final_decisions"]
+        step_iv = [(t_anchor + anchor.elapsed_time(a) / 1e3,
+                    t_anchor + anchor.elapsed_time(b) / 1e3)
+                   for a, b in steps]
+        # device time of the steps spent while the host drained or
+        # staged (the densify of a later height)
+        host = _union(ivs["drain"] + ivs["stage"])
+        overlap_share = (sum(_covered(host, a, b) for a, b in step_iv)
+                         / max(1e-9, sum(b - a for a, b in step_iv)))
+        q, st = rep["queue"], drv.stats
+        checks = {
+            "every instance decided at every height":
+                rep["decisions_total"] == H * I
+                and bool((drv.state.height == H).all()),
+            "2,048 rejected lanes a height, as phase 8":
+                rep["rejected_signature_device"] == H * 2 * I
+                == ref["rejected"],
+            "state and tally == phase 8's served driver, leaf for leaf":
+                _same_leaves(_leaves(drv), ref["leaves"]),
+            "decisions == phase 8's":
+                all(np.array_equal(getattr(st, f), ref["stats"][f])
+                    for f in ("decided", "decision_value",
+                              "decision_round")),
+            "each decision polled once, value 7 in round 0":
+                sorted(x.instance for x in polled) == list(range(I))
+                and {(x.value_id, x.round) for x in polled}
+                == {(VALUE, 0)},
+            "one verify launch a height":
+                launches == H and len(steps) == H,
+            "native_phase_builds == heights served":
+                rep["native_phase_builds"] == (H if native else 0),
+            "submitted == admitted + rejected, every vote dispatched once":
+                q["submitted"] == q["admitted"] + q["rejected_overflow"]
+                + q["rejected_fairness"] + q["rejected_malformed"]
+                and q["admitted"] == q["drained"] == H * n
+                and rep["dispatched_votes"] == H * n,
+        }
+        if name != "python":
+            checks["dispatch stream == the Python-admission serve's, "
+                   "leaf for leaf" + (" (lanes in key order)" if threaded
+                                      else "")] = \
+                not shape_bad and int(mism) == 0
+        if threaded:
+            checks["no inbox drop, no thread failure"] = (
+                rep["inbox"]["dropped"] == 0
+                and rep["thread_failure"] is None)
+        if not all(checks.values()):
+            raise AssertionError(
+                f"native serve, {name}: {checks}; launches {launches}, "
+                f"report {({k: rep[k] for k in ('decisions_total', 'rejected_signature_device', 'dispatched_batches', 'native_phase_builds', 'queue')})}, "
+                f"stream shapes off at {shape_bad}, mismatches {int(mism)}")
+        ms = {k: [(b - a) * 1e3 for a, b in v] for k, v in ivs.items()}
+        # the drains that popped something (a poll on an idle queue
+        # returns before the call)
+        drains = [x for x, (a, b) in zip(ms["drain"], ivs["drain"])
+                  if x > 0.05]
+        step_ms = [a.elapsed_time(b) for a, b in steps]
+        hist = (svc.metrics.hists[SERVE_NATIVE_DRAIN_WALL_S].snapshot()
+                if native else None)
+        log(f"[native serve] {name}: {H} heights, {H * n} votes, wall "
+            f"{wall:.3f} s, served votes/s={H * n / wall:.0f}; verify "
+            f"launches {launches}, native_phase_builds "
+            f"{rep['native_phase_builds']}, rejected "
+            f"{rep['rejected_signature_device']}")
+        log(f"[native serve] {name} per tick ms: submit "
+            + ", ".join(f"{x:.1f}" for x in ms["submit"])
+            + "; drain " + ", ".join(f"{x:.1f}" for x in drains)
+            + "; stage " + ", ".join(f"{x:.1f}" for x in ms["stage"])
+            + "; dispatch (host launch) " + ", ".join(
+                f"{x:.1f}" for x in ms["launch"])
+            + "; step (CUDA events) " + ", ".join(f"{x:.1f}"
+                                                  for x in step_ms)
+            + (f"; {SERVE_NATIVE_DRAIN_WALL_S} over {hist['count']} "
+               f"records: mean {hist['mean'] * 1e3:.1f} ms a drain, max "
+               f"{hist['max'] * 1e3:.1f} ms" if hist else "")
+            + f"; overlap share {overlap_share:.3f}")
+        if busy is not None:
+            log(f"[native serve] {name}: {SERVE_SUBMIT_BUSY_FRAC} "
+                f"{busy['submit']:.3f}, {SERVE_DISPATCH_BUSY_FRAC} "
+                f"{busy['dispatch']:.3f} over the run (the loops' busy "
+                f"seconds over its wall; the dispatch loop's drains run "
+                f"in its batch close, outside its busy span); idle polls "
+                f"of the dispatch loop {idle['n']}, {idle['s']:.3f} s")
+        log(f"[native serve] {name}: device peak {peak / 2**30:.3f} GiB "
+            f"above the {before / 2**30:.3f} GiB allocated before (the "
+            f"reference stream: in 'before' after the Python run, in the "
+            f"peak of that run; the stream comparison's temporaries in "
+            f"the peak), against the top rung's plan "
+            f"{plan.peak_bytes / 2**30:.3f} GiB; card "
+            f"{smi('name,power.limit')}")
+        out[name] = {"votes_per_s": H * n / wall, "wall_s": wall,
+                     "launches": launches,
+                     "native_phase_builds": rep["native_phase_builds"],
+                     "submit_ms": ms["submit"], "drain_ms": drains,
+                     "stage_ms": ms["stage"], "launch_ms": ms["launch"],
+                     "step_ms": step_ms, "overlap_share": overlap_share,
+                     "peak_bytes": peak, "busy_share": busy,
+                     "idle_polls": idle["n"], "idle_poll_s": idle["s"]}
+        return kept.pop("lanes", None)
+
+    serve("python", native=False)
+    torch.cuda.empty_cache()
+    lanes = serve("native", native=True)
+    torch.cuda.empty_cache()
+    n_l, n_s, mism, max_err, n_forged, right = _sample_vs_plain(
+        lanes, SEED + 11)
+    del lanes
+    if mism or not right or n_l != n:
+        raise AssertionError(
+            f"adopted build: {n_l} lanes; kernel != plain on {mism} of "
+            f"{n_s} sampled lanes, or a forged lane passed / an honest "
+            f"lane failed")
+    log(f"[native serve] verify kernel on the last adopted build ({n_l} "
+        f"lanes, none padding) == plain on a sample of {n_s} lanes "
+        f"({n_forged} forged, all rejected)")
+    serve(f"native_shards{NATIVE_SERVE_SHARDS}", native=True,
+          shards=NATIVE_SERVE_SHARDS)
+    torch.cuda.empty_cache()
+    serve("threaded", native=True, threaded=True)
+    stream_ref.clear()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"[native serve] served votes/s: " + ", ".join(
+        f"{k} {v['votes_per_s']:.0f}" for k, v in out.items())
+        + f"; phase wall {wall:.1f} s; card {smi('name,power.limit')}")
+    return {"launches_native_serve_phase":
+            sum(v["launches"] for v in out.values()),
+            "native_serve_sample_mismatches": mism,
+            "native_serve_sample_max_abs_err": max_err,
+            "native_serve_phase_s": wall,
+            "native_serve": out}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3193,10 +3592,11 @@ def main(argv=None) -> int:
 
     # -- phase 8: the serve plane -------------------------------------------
     served, s_sigs, s_honest = serve_signed_phase(seeds, pubkeys, classes)
+    serve_ref = served.pop("_ref")
     torch.cuda.empty_cache()
     dedup_launches = serve_dedup_phase(seeds, pubkeys, classes, s_sigs,
                                        s_honest)
-    del s_sigs, s_honest
+    del s_honest
     torch.cuda.empty_cache()
     served["launches_serve_dedup"] = dedup_launches
     served["launches_serve_phase"] += dedup_launches
@@ -3214,6 +3614,12 @@ def main(argv=None) -> int:
     rows["ed25519_verify_signed5"].update(native_ingest_phase(
         seeds, pubkeys, sigs, phase3_rate, ns_row["north_star_votes_per_s"],
         north_decisions))
+    torch.cuda.empty_cache()
+
+    # -- phase 11: native admission and the threaded host ----------------
+    rows["ed25519_verify_signed5"].update(native_serve_phase(
+        seeds, pubkeys, s_sigs, serve_ref))
+    del s_sigs, serve_ref
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

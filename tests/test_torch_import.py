@@ -8,7 +8,9 @@ the batcher, an unsigned height served through VoteService with its
 metrics, flight recorder and heartbeat, and the host plane: benchmark
 config 1 under --small, a tapped network and an executor snapshot, and
 one unsigned tick of the C++ ingest loop with its checkpoint, the
-library built from the port's own `core/native/` sources only), and
+library built from the port's own `core/native/` sources only, and the
+native admission queue and its shards, the runtime lock checker and an
+unsigned height served by the threaded host over native admission), and
 never loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
@@ -181,6 +183,28 @@ assert so in maps, so
 libs = {ln.split()[-1] for ln in maps.splitlines()
         if ln.split()[-1].endswith(".so") and "agnes" in ln.split()[-1]}
 assert libs == {so}, libs
+assert any(a.endswith("admission_phases.cpp") for a in cpp), cpp
+
+from agnes_tpu_torch.analysis import lockcheck
+from agnes_tpu_torch.serve import (NativeAdmissionQueue,
+                                   NativeAdmissionShards, threaded_service)
+
+for nq in (NativeAdmissionQueue(2, 16), NativeAdmissionShards(2, 16,
+                                                              n_shards=2)):
+    assert nq.submit(pack_wire_votes(*c)).accepted == 8
+    assert len(nq.drain()) == 8 and nq.counters["drained"] == 8
+td = DeviceDriver(2, 4, advance_height=True, defer_collect=True,
+                  device="cpu")
+tsvc = threaded_service(td, VoteBatcher(2, 4, n_slots=4, device="cpu"),
+                        None, native_admission=True, max_delay_s=0.0,
+                        ladder=ShapeLadder.plan(2, 4, min_rung=16,
+                                                hbm_bytes=1 << 30))
+for typ in (0, 1):
+    c = fx.full_mesh_cols(2, 4, fx.deterministic_seeds(4), 0, typ, 5)
+    assert tsvc.submit(pack_wire_votes(*c[:6]))
+trep = tsvc.drain(timeout_s=60)
+assert trep["decisions_total"] == 2 and trep["thread_failure"] is None
+assert isinstance(lockcheck.LockOrderState(), lockcheck.LockOrderState)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
