@@ -30,8 +30,9 @@ capped at its ladder's top rung.  The serve pieces are the twin's: the dedup col
 `digest`) riding the pending and held queues, `split_pending_verified`
 / `adopt_pending`, `last_build_keys` and the `max_votes` cap
 (`_defer_pending`), and `adopt_native_phases`, which takes a build the
-native admission drain already densified.  Waiting for a later slice:
-the dense (sharded) lane layout.
+native admission drain already densified.  `build_phases_device_dense`
+gives the same build in the dense [Ps, I, V] lane layout
+(`DenseSignedPhases`), which shards with the phases on a mesh.
 
 Evidence.  Every build retains the votes it screened (`_log`), as the
 twin does: host-verified and unsigned builds after the screen, device-
@@ -56,7 +57,11 @@ from agnes_tpu_torch.bridge.value_table import MAX_VALUE_ID, SlotMap
 from agnes_tpu_torch.core.round_votes import RoundVotes, ThreshKind
 from agnes_tpu_torch.crypto.encoding import VOTE_MSG_LEN
 from agnes_tpu_torch.device.encoding import I32, resolve_device
-from agnes_tpu_torch.device.step import SignedLanes, VotePhase
+from agnes_tpu_torch.device.step import (
+    DenseSignedPhases,
+    SignedLanes,
+    VotePhase,
+)
 from agnes_tpu_torch.device.tally import VOTED_NIL
 from agnes_tpu_torch.types import MAX_ROUND, NIL_ID, Vote, VoteType
 
@@ -701,6 +706,43 @@ class VoteBatcher:
             val=t(cat.validator.astype(np.int32)),
             real=t(real))
         return phases, lanes
+
+    def build_phases_device_dense(self, pubkeys: np.ndarray,
+                                  max_votes: Optional[int] = None):
+        """`build_phases_device` in the dense lane layout: returns
+        (phases, DenseSignedPhases) with sig and blocks scattered to
+        [Ps, I, V, ...] (Ps = the phases built) — feed both to
+        DeviceDriver.step_seq_signed_dense, on one device or a mesh.
+        Cells without a vote hold zeros and verify False, which the
+        mask AND discards.  The same eligibility gate, host-fallback
+        screening and `max_votes` cap as build_phases_device, and the
+        same fallback to (host-verified phases, None).  The scatter runs
+        in numpy, on the card's path straight into pinned host tensors,
+        and each tensor goes up once by a non-blocking copy; nothing is
+        read back from the device."""
+        phases, cat, pidx = self._build_device_common(pubkeys,
+                                                      max_votes=max_votes)
+        if cat is None:
+            return phases, None
+        Ps = len(phases)
+        _, sig_np, blocks_np = self._pack_verify_inputs_np(cat, pubkeys)
+        pin = self.device.type == "cuda"
+        sig = torch.zeros((Ps, self.I, self.V, 64), dtype=I32,
+                          pin_memory=pin)
+        blocks = torch.zeros((Ps, self.I, self.V) + blocks_np.shape[1:],
+                             dtype=I32, pin_memory=pin)
+        cell = (pidx, cat.instance, cat.validator)
+        sig.numpy()[cell] = sig_np
+        blocks.numpy()[cell] = blocks_np
+        del sig_np, blocks_np
+
+        def up(t: torch.Tensor) -> torch.Tensor:
+            return t if not pin else t.to(self.device, non_blocking=True)
+
+        dense = DenseSignedPhases(
+            pub=self._to_device(np.asarray(pubkeys).astype(np.int32)),
+            sig=up(sig), blocks=up(blocks))
+        return phases, dense
 
     def adopt_native_phases(self, cols, ph, pubkeys: np.ndarray):
         """Adopt a native phase drain: `cols` is the drained WireColumns

@@ -41,6 +41,7 @@ from agnes_tpu_torch.device.tally import (
     add_votes,
     current_threshold,
     event_of,
+    psum,
     rotate_window,
 )
 from agnes_tpu_torch.types import NIL_ID, VoteType
@@ -90,6 +91,7 @@ def consensus_step(state: DeviceState,
                    proposer_flag: torch.Tensor,  # [I, R] this node proposes (h,r)
                    propose_value: torch.Tensor,  # [I] fresh value to propose
                    advance_height: bool = False,  # stage 8 on/off
+                   group=None,  # validator ProcessGroup (all_reduce)
                    ) -> StepOutputs:
     msgs = []
 
@@ -110,7 +112,7 @@ def consensus_step(state: DeviceState,
     height_ok = phase.height == state.height
     tally, tev = add_votes(tally, powers, total_power, phase.round, phase.typ,
                            phase.slots, phase.mask & height_ok[:, None],
-                           state.round)
+                           state.round, group=group)
     neg1 = torch.full_like(tev.tag, -1)
     # precommit-class events are consumed on first in-round delivery
     # (their arms are step-independent, state_machine.rs:208,:211)
@@ -230,6 +232,7 @@ def consensus_step_seq(state: DeviceState,
                        proposer_flag: torch.Tensor,
                        propose_value: torch.Tensor,
                        advance_height: bool = False,
+                       group=None,
                        ) -> StepOutputs:
     """P sequential fused steps (the JAX twin's `lax.scan` over the
     leading axis of `exts`/`phases`, here a Python loop).  msgs leaves
@@ -240,7 +243,8 @@ def consensus_step_seq(state: DeviceState,
                              ExtEvent(*[x[p] for x in exts]),
                              VotePhase(*[x[p] for x in phases]),
                              powers, total_power, proposer_flag,
-                             propose_value, advance_height=advance_height)
+                             propose_value, advance_height=advance_height,
+                             group=group)
         state, tally = out.state, out.tally
         msgs.append(out.msgs)
     return StepOutputs(state=state, tally=tally, msgs=stack_tuples(msgs))
@@ -265,7 +269,9 @@ class SignedStepOutputs(NamedTuple):
     state: DeviceState
     tally: TallyState
     msgs: DeviceMessage      # [P, n_stages, I] leaves
-    n_rejected: torch.Tensor  # scalar int32: real lanes that failed
+    n_rejected: torch.Tensor  # int32: real lanes that failed, a scalar
+    #                           (lane path) or [I] (dense path); the
+    #                           driver sums it at collect
 
 
 def _verify_lanes_chunked(pub: torch.Tensor, sig: torch.Tensor,
@@ -323,6 +329,99 @@ def consensus_step_seq_signed(state: DeviceState,
                              msgs=out.msgs, n_rejected=n_rej)
 
 
+class DenseSignedPhases(NamedTuple):
+    """Dense per-cell Ed25519 inputs: entry (p, i, v) holds the
+    signature material of validator v's vote in instance i for phase
+    `P - Ps + p` (the last Ps phases of the sequence are the signed vote
+    classes; leading phases, such as the round-entry phase, carry no
+    lanes).  The [.., I, V, ..] layout shards like the phase masks, so
+    each rank of a mesh verifies only its own cells
+    (parallel/sharded.py).  blocks hold the uint32 SHA-512 words as
+    int32 bit patterns, as SignedLanes does."""
+
+    pub: torch.Tensor     # [V, 32] int32 validator table
+    sig: torch.Tensor     # [Ps, I, V, 64] int32
+    blocks: torch.Tensor  # [Ps, I, V, nb, 32] int32 (uint32 bits)
+
+
+def _verify_dense(dense: DenseSignedPhases,
+                  verify_chunk: Optional[int]) -> torch.Tensor:
+    """[Ps, I, V] verdicts of every dense cell: one `verify_batch`
+    call (one kernel launch on the card) over all Ps*I*V cells, or with
+    `verify_chunk` one a tile of that many instance rows
+    (verify_chunk*Ps*V lanes), the last tile padded with zero rows whose
+    verdicts are cut off, as the twin's `lax.map` tiles.  Each tile
+    materializes its [Ps, t, V, 32] pub broadcast and, for Ps > 1, a
+    contiguous copy of its sig and blocks (utils/budget.
+    plan_dense_verify counts both).  Chunked and unchunked agree cell
+    for cell: every lane is independent integer math."""
+    Ps, I, V = dense.sig.shape[:3]
+    tail = tuple(dense.blocks.shape[3:])
+
+    def verify(sig, blocks):
+        t = sig.shape[1]
+        pub = dense.pub[None, None].expand(Ps, t, V, 32)
+        return ed25519.verify_batch(
+            pub.reshape(Ps * t * V, 32), sig.reshape(Ps * t * V, 64),
+            blocks.reshape((Ps * t * V,) + tail)).reshape(Ps, t, V)
+
+    if not verify_chunk or verify_chunk >= I:
+        return verify(dense.sig, dense.blocks)
+    t = int(verify_chunk)
+    tiles = []
+    for r0 in range(0, I, t):
+        sig, blocks = dense.sig[:, r0:r0 + t], dense.blocks[:, r0:r0 + t]
+        pad = t - sig.shape[1]
+        if pad:
+            sig = torch.cat([sig, sig.new_zeros((Ps, pad) + sig.shape[2:])],
+                            dim=1)
+            blocks = torch.cat(
+                [blocks, blocks.new_zeros((Ps, pad) + blocks.shape[2:])],
+                dim=1)
+        tiles.append(verify(sig, blocks))
+    return torch.cat(tiles, dim=1)[:, :I]
+
+
+def consensus_step_seq_signed_dense(state: DeviceState,
+                                    tally: TallyState,
+                                    exts: ExtEvent,       # [P, I]
+                                    phases: VotePhase,    # [P, I(, V)]
+                                    dense: DenseSignedPhases,
+                                    powers: torch.Tensor,
+                                    total_power: torch.Tensor,
+                                    proposer_flag: torch.Tensor,
+                                    propose_value: torch.Tensor,
+                                    advance_height: bool = False,
+                                    verify_chunk: Optional[int] = None,
+                                    group=None,
+                                    ) -> SignedStepOutputs:
+    """`consensus_step_seq_signed` with dense per-cell lanes, the
+    layout that shards (parallel/sharded.make_sharded_step_seq_signed):
+    verification is elementwise in (instance, validator), so each rank
+    verifies only its own cells and the tally's all_reduces stay the
+    only collectives.  Cells without a vote verify garbage that the
+    mask AND discards.  `n_rejected` comes back per instance, [I]
+    (all-reduced over `group` when sharded): masked cells whose
+    signature failed.
+
+    `verify_chunk` counts instance rows per verify launch (size it with
+    utils/budget.plan_dense_verify); on a mesh it tiles the rank's own
+    rows and the tile loop adds no collective."""
+    Ps, I, V = dense.sig.shape[:3]
+    P = phases.mask.shape[0]
+    ok = _verify_dense(dense, verify_chunk)                       # [Ps, I, V]
+    vmask = torch.cat([torch.ones((P - Ps, I, V), dtype=torch.bool,
+                                  device=ok.device), ok], dim=0)
+    n_rej = (phases.mask & ~vmask).sum(dim=(0, 2), dtype=I32)     # [I]
+    psum(n_rej, group)
+    phases = phases._replace(mask=phases.mask & vmask)
+    out = consensus_step_seq(state, tally, exts, phases, powers,
+                             total_power, proposer_flag, propose_value,
+                             advance_height=advance_height, group=group)
+    return SignedStepOutputs(state=out.state, tally=out.tally,
+                             msgs=out.msgs, n_rejected=n_rej)
+
+
 def honest_heights(state: DeviceState,
                    tally: TallyState,
                    slots: torch.Tensor,      # [I, V] value slot votes
@@ -332,6 +431,7 @@ def honest_heights(state: DeviceState,
                    proposer_flag: torch.Tensor,
                    propose_value: torch.Tensor,
                    heights: int,
+                   group=None,
                    ) -> StepOutputs:
     """`heights` consecutive honest heights — entry step, full prevote
     phase, full precommit phase, decision, height advance — with every
@@ -349,7 +449,7 @@ def honest_heights(state: DeviceState,
                           slots=sl, mask=mk, height=st.height)
         return consensus_step(st, ta, none, phase, powers, total_power,
                               proposer_flag, propose_value,
-                              advance_height=True)
+                              advance_height=True, group=group)
 
     per_height = []
     for _ in range(heights):

@@ -24,12 +24,18 @@ Port notes:
   every stored leaf stays int32.  The JAX twin compares in int32 and
   wraps there (a single validator of power 715,827,883 never reaches
   quorum): a deliberate departure, pinned by tests/test_torch_quorum.py.
+* Sharded over a validator process group (`parallel/sharded.py`, one
+  process per device), the twin's two `psum`s become
+  `torch.distributed.all_reduce(SUM)` over that group (`psum` below),
+  each counted in `COLLECTIVES` per group: the port's stand-in for the
+  twin's collective census.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,6 +49,24 @@ NOT_VOTED = -2
 VOTED_NIL = -1
 # "no event" tag
 NO_EVENT = -1
+
+#: all_reduces issued by `psum`, by process group, over the process's
+#: life.  The sharded factories read it around each dispatch
+#: (`parallel/sharded.py`: their `census`); only tests and the smoke
+#: reset it.
+COLLECTIVES: collections.Counter = collections.Counter()
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The twin's `lax.psum` over a mesh axis: an in-place
+    `all_reduce(SUM)` of `t` over `group` (a ProcessGroup), counted in
+    COLLECTIVES; `group` None is the single-device identity."""
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        COLLECTIVES[group] += 1
+    return t
 
 
 class TallyConfig(NamedTuple):
@@ -184,10 +208,17 @@ def add_votes(tally: TallyState,
               slots: torch.Tensor,         # [I, V] value slot or VOTED_NIL
               mask: torch.Tensor,          # [I, V] vote present
               cur_round: torch.Tensor,     # [I] instance's current round
+              group=None,
               ) -> Tuple[TallyState, TallyEvents]:
     """Ingest one dense vote phase; returns the updated tally and the
-    newly crossed threshold events (twin of the JAX `add_votes`,
-    single-device: the validator-axis reductions are local)."""
+    newly crossed threshold events (twin of the JAX `add_votes`).
+
+    Sharded over a validator process group (`group`, the twin's
+    `axis_name`), pass this rank's V-blocks of `powers`, `slots`,
+    `mask`, `tally.voted` and `tally.equiv`: the two validator-axis
+    reductions (the weight delta and the round-skip weight) become
+    `all_reduce`s over `group` (`psum`), and everything else stays
+    local.  `group` None: one device, the reductions local."""
     I_, W, _, S1 = tally.weights.shape
 
     # --- absolute rounds -> window rows; out-of-window votes dropped
@@ -211,6 +242,7 @@ def add_votes(tally: TallyState,
                           torch.zeros_like(slots))                   # [I, V]
     delta = torch.zeros((I_, S1), dtype=I32, device=slots.device)
     delta.scatter_add_(1, col, contrib)                              # [I, S1]
+    psum(delta, group)
 
     weights_row = _gather_row(tally.weights, sel_wt)
     weights_row_new = weights_row + delta
@@ -242,6 +274,7 @@ def add_votes(tally: TallyState,
     new_voter = fresh & (other_row == NOT_VOTED)
     dskip = torch.where(new_voter, powers[None, :],
                         torch.zeros_like(slots)).sum(dim=1, dtype=I32)
+    psum(dskip, group)
     onehot_r = _arange(W, widx)[None, :] == widx[:, None]            # [I, W]
     w_skip = tally.skip_w + torch.where(onehot_r, dskip[:, None],
                                         torch.zeros_like(tally.skip_w))

@@ -1,10 +1,10 @@
 """Closed-loop driver for the fused device consensus step (twin of
-`agnes_tpu.harness.device_driver.DeviceDriver`, single device).
+`agnes_tpu.harness.device_driver.DeviceDriver`).
 
-Runs I independent consensus instances on one device, with the harness
-playing the network: it fabricates the dense vote phases for the
-validators according to a schedule, and collects decisions off the
-message stream.
+Runs I independent consensus instances on one device, or on a mesh of
+devices (`mesh=`, parallel/), with the harness playing the network: it
+fabricates the dense vote phases for the validators according to a
+schedule, and collects decisions off the message stream.
 
 Port notes: JAX donation becomes in-place state on the driver (each
 step's outputs replace `self.state` / `self.tally`); JAX's async
@@ -17,8 +17,21 @@ retrace tripwire (`audit=`, `_observe` on the signed and unsigned
 sequence entries), the flight recorder (`flightrec`, a `dispatch` event
 per `step_async`, stamped with the serve tick) and `step_async`'s
 `tick`.  The twin's `donate` is left out: a torch step already returns
-fresh tensors, and nothing is copied that donation would save.  Waiting
-for later slices: meshes and the dense signed step.
+fresh tensors, and nothing is copied that donation would save.
+
+On a mesh (one process per device, parallel/mesh.py) every rank is
+called with the same global arguments, as the twin's single controller
+is, and computes only its block: `self.state` / `self.tally` are the
+rank's blocks, and each dispatch cuts the rank's block out of its
+global phases, events and lanes (parallel/sharded.py's layout table).
+The tally's all_reduces over the mesh's `val` group are the only
+collectives inside a step.  The read-outs (`collect` and the stats,
+`all_decided`, `rejected_signature_device`, `equivocators_detected`,
+`state_copies`) give the global answer on every rank, through one
+all_gather at each call, outside the step.  A phase's `height` is read
+at the rank's own block only, so `empty_phase` and `phase` fill that
+block from the rank's state.  The packed-lane signed layout is one
+device's, as in the twin: on a mesh use the dense layout.
 """
 
 from __future__ import annotations
@@ -39,17 +52,24 @@ from agnes_tpu_torch.device.encoding import (
 )
 from agnes_tpu_torch.device.step import (
     NULL_EVENT,
+    DenseSignedPhases,
     ExtEvent,
     SignedLanes,
     VotePhase,
     consensus_step,
     consensus_step_seq,
     consensus_step_seq_signed,
+    consensus_step_seq_signed_dense,
     honest_heights,
 )
 from agnes_tpu_torch.device.tally import TallyConfig, TallyState
 from agnes_tpu_torch.types import NIL_ID, VoteType
-from agnes_tpu_torch.utils.budget import device_hbm_bytes, plan_lane_verify
+from agnes_tpu_torch.utils.budget import (
+    device_hbm_bytes,
+    mesh_local_shape,
+    plan_dense_verify,
+    plan_lane_verify,
+)
 
 
 @dataclass
@@ -74,25 +94,33 @@ def _int32_total(powers: np.ndarray) -> int:
 
 
 class DeviceDriver:
-    """I instances x V validators on one device (default "cuda")."""
+    """I instances x V validators on one device (default "cuda"), or on
+    a mesh (module docstring)."""
 
     def __init__(self, n_instances: int, n_validators: int,
                  n_rounds: int = 4, n_slots: int = 4,
                  proposer_is_self: bool = True,
                  advance_height: bool = False,
-                 defer_collect: bool = False,
+                 mesh=None, defer_collect: bool = False,
                  verify_chunk=None, hbm_budget_bytes: Optional[int] = None,
                  audit=False, device="cuda"):
-        """`defer_collect`: steps return without reading anything back;
+        """`mesh` (parallel/mesh.py, a flat data x val or hierarchical
+        slice x data x val DeviceMesh over this process's world) runs
+        the sharded steps, this rank holding its block (module
+        docstring); `device` must be of the mesh's device type.
+
+        `defer_collect`: steps return without reading anything back;
         `collect()` (or `block_until_ready`) folds the queued message
         batches and counts into the stats.
 
         `verify_chunk` bounds the fused signed verify's memory peak
         (`utils/budget.py`): None verifies every lane in one call; an
-        int streams that many instance rows (rows x V lanes) per
-        microbatch; "auto" sizes the tile from the card's memory
-        (`hbm_budget_bytes` overrides it, and a CPU driver must give
-        it).  Chunked and unchunked runs agree lane for lane.
+        int streams that many instance rows per microbatch (rows x V
+        lanes on the packed-lane path; on the dense path rows of the
+        rank's own block, Ps x V lanes each); "auto" sizes the tile
+        from the card's memory (`hbm_budget_bytes` overrides it, and a
+        CPU driver must give it), on a mesh for the rank's block.
+        Chunked and unchunked runs agree lane for lane.
 
         `audit=True` (or a ready RetraceSentinel) installs the retrace
         tripwire (analysis/retrace.py) on the sequence entries: each
@@ -116,6 +144,17 @@ class DeviceDriver:
         self.verify_chunk = verify_chunk
         self.hbm_budget_bytes = hbm_budget_bytes
         self._lane_plans: dict = {}            # lanes -> VerifyPlan
+        self._dense_plans: dict = {}           # (Ps, local I, V) -> plan
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {mesh.device_type} mesh needs a driver on "
+                    f"{mesh.device_type}, not {self.device}")
+            from agnes_tpu_torch.parallel import sharded
+
+            self._sh = sharded
+            self._sharded: dict = {}           # (entry, statics) -> fn
         self._deferred_msgs: list = []
         # device scalars settled at collect: votes of the signed and
         # async dispatches, and their device-verify rejects
@@ -129,6 +168,9 @@ class DeviceDriver:
                                n_slots=n_slots)
         self.state = DeviceState.new((self.I,), device=self.device)
         self.tally = TallyState.new(self.I, self.cfg, device=self.device)
+        if mesh is not None:
+            self.state, self.tally = self._sh.place_step_state(
+                mesh, self.state, self.tally)
         self.powers = torch.ones((self.V,), dtype=I32, device=self.device)
         self.total = torch.tensor(_int32_total(np.ones(self.V, np.int64)),
                                   dtype=I32, device=self.device)
@@ -191,6 +233,62 @@ class DeviceDriver:
         plan = self._lane_plans[n_lanes]
         return plan.tile if plan.chunked else None
 
+    def _local_shape(self):
+        """(I, V) as this rank's block holds them (the whole shape on one
+        device): the shape the dense chunk plan bounds."""
+        return mesh_local_shape(self.mesh, self.I, self.V)
+
+    def _resolve_dense_chunk(self, n_phases: int) -> Optional[int]:
+        """Instance rows (of the rank's block) per verify launch for the
+        dense signed path, or None for one call.  An int knob of <= 0
+        rows, or one covering the block, is the unchunked call; "auto"
+        plans once per (Ps, local shape) with `plan_dense_verify`."""
+        if self.verify_chunk is None:
+            return None
+        local_i, local_v = self._local_shape()
+        if self.verify_chunk != "auto":
+            c = int(self.verify_chunk)
+            return None if c <= 0 or c >= local_i else c
+        key = (n_phases, local_i, local_v)
+        if key not in self._dense_plans:
+            hbm = (self.hbm_budget_bytes if self.hbm_budget_bytes is not None
+                   else device_hbm_bytes(self.device))
+            self._dense_plans[key] = plan_dense_verify(
+                n_phases, local_i, local_v, hbm_bytes=hbm)
+        plan = self._dense_plans[key]
+        return plan.tile if plan.chunked else None
+
+    # -- the mesh --------------------------------------------------------------
+
+    def _block(self, tree, spec):
+        """This rank's block of a global argument (a view)."""
+        return self._sh.shard_tree(self.mesh, tree, spec)
+
+    def _common_blocks(self):
+        """This rank's blocks of (powers, total, proposer_flag,
+        propose_value)."""
+        args = (self.powers, self.total, self.proposer_flag,
+                self.propose_value)
+        return tuple(self._block(x, sp) for x, sp in
+                     zip(args, self._sh.step_specs()[4:]))
+
+    def _sharded_fn(self, make, **statics):
+        """The sharded entry `make(mesh, **statics)`, made once."""
+        key = (make.__name__,) + tuple(sorted(statics.items()))
+        if key not in self._sharded:
+            self._sharded[key] = make(self.mesh, **statics)
+        return self._sharded[key]
+
+    def _heights(self) -> torch.Tensor:
+        """A phase's [I] height leaf: the state's; on a mesh a global
+        tensor whose own block holds this rank's heights (the only block
+        a rank reads)."""
+        if self.mesh is None:
+            return self.state.height
+        h = torch.zeros((self.I,), dtype=I32, device=self.device)
+        self._block(h, (self._sh.DATA,)).copy_(self.state.height)
+        return h
+
     # -- retrace tripwire ----------------------------------------------------
 
     def _observe(self, entry: str, args, statics=()) -> None:
@@ -221,7 +319,7 @@ class DeviceDriver:
             slots=self._full((self.I, self.V), NIL_ID),
             mask=torch.zeros((self.I, self.V), dtype=torch.bool,
                              device=self.device),
-            height=self.state.height)
+            height=self._heights())
 
     def phase(self, round: int, typ: VoteType, slot: int,
               frac: float = 1.0, offset: int = 0) -> VotePhase:
@@ -236,7 +334,7 @@ class DeviceDriver:
             typ=self._full((self.I,), int(typ)),
             slots=slots[None, :].expand(self.I, self.V).contiguous(),
             mask=voters[None, :].expand(self.I, self.V).contiguous(),
-            height=self.state.height)
+            height=self._heights())
 
     def ext(self, tag: int = NULL_EVENT, round: int = 0, value: int = NIL_ID,
             pol_round: int = -1) -> ExtEvent:
@@ -253,10 +351,17 @@ class DeviceDriver:
         """One fused step; returns the stacked DeviceMessage batch."""
         ext = ext if ext is not None else self.ext()
         phase = phase if phase is not None else self.empty_phase()
-        out = consensus_step(self.state, self.tally, ext, phase, self.powers,
-                             self.total, self.proposer_flag,
-                             self.propose_value,
-                             advance_height=self.advance_height)
+        if self.mesh is not None:
+            s = self._sh.step_specs()
+            fn = self._sharded_fn(self._sh.make_sharded_step,
+                                  advance_height=self.advance_height)
+            out = fn(self.state, self.tally, self._block(ext, s[2]),
+                     self._block(phase, s[3]), *self._common_blocks())
+        else:
+            out = consensus_step(self.state, self.tally, ext, phase,
+                                 self.powers, self.total,
+                                 self.proposer_flag, self.propose_value,
+                                 advance_height=self.advance_height)
         return self._finish_step(out, 1, int(phase.mask.sum()))
 
     def _stack_seq(self, phases, exts):
@@ -278,6 +383,13 @@ class DeviceDriver:
                 self.tally if tally is None else tally, exts_st, phases_st,
                 self.powers, self.total, self.proposer_flag,
                 self.propose_value)
+        if self.mesh is not None:
+            self._observe("sharded_step_seq", args, (self.advance_height,))
+            s = self._sh.seq_specs()
+            fn = self._sharded_fn(self._sh.make_sharded_step_seq,
+                                  advance_height=self.advance_height)
+            return fn(args[0], args[1], self._block(exts_st, s[2]),
+                      self._block(phases_st, s[3]), *self._common_blocks())
         self._observe("consensus_step_seq", args, (self.advance_height,))
         return consensus_step_seq(*args, advance_height=self.advance_height)
 
@@ -310,10 +422,73 @@ class DeviceDriver:
         microbatches as `verify_chunk` sets.  Votes count real lanes
         less the device's rejects, into `votes_ingested` and
         `rejected_signature_device` at collect (at once unless
-        collection is deferred)."""
+        collection is deferred).  The packed-lane layout is one
+        device's: a mesh driver raises NotImplementedError (use
+        step_seq_signed_dense)."""
+        self._refuse_lanes_on_mesh()
         phases_st, exts_st, P = self._stack_seq(phases, exts)
         out = self._signed(phases_st, exts_st, lanes)
         return self._finish_step(out, P, lanes.real.sum(), out.n_rejected)
+
+    def _refuse_lanes_on_mesh(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the packed-lane signed step is single-device; on a mesh "
+                "use step_seq_signed_dense (+ VoteBatcher."
+                "build_phases_device_dense), which shards the lanes with "
+                "the phases")
+
+    def _dense_dispatch_fn(self, n_dense_phases: int):
+        """The dense fused signed entry for a Ps-class dense batch, as
+        f(state, tally, exts_st, phases_st, dense): sharded on a mesh
+        (state and tally the rank's blocks, the rest global), one device
+        otherwise, at the verify tile `_resolve_dense_chunk` gives.  The
+        serve pipeline's dense dispatch and warmup go through it too."""
+        chunk = self._resolve_dense_chunk(n_dense_phases)
+        statics = (self.advance_height, chunk)
+        if self.mesh is not None:
+            s = self._sh.seq_specs()
+            fn = self._sharded_fn(self._sh.make_sharded_step_seq_signed,
+                                  advance_height=self.advance_height,
+                                  verify_chunk=chunk)
+
+            def dispatch(st, ta, ex, ph, dn):
+                self._observe("sharded_step_seq_signed",
+                              (st, ta, ex, ph, dn, self.powers, self.total,
+                               self.proposer_flag, self.propose_value),
+                              statics)
+                return fn(st, ta, self._block(ex, s[2]),
+                          self._block(ph, s[3]),
+                          self._block(dn, self._sh.dense_lane_specs()),
+                          *self._common_blocks())
+
+            return dispatch
+
+        def dispatch(st, ta, ex, ph, dn):
+            args = (st, ta, ex, ph, dn, self.powers, self.total,
+                    self.proposer_flag, self.propose_value)
+            self._observe("consensus_step_seq_signed_dense", args, statics)
+            return consensus_step_seq_signed_dense(
+                *args, advance_height=self.advance_height,
+                verify_chunk=chunk)
+
+        return dispatch
+
+    def step_seq_signed_dense(self, phases, dense: DenseSignedPhases,
+                              exts=None) -> DeviceMessage:
+        """Fused verify + step with dense per-cell lanes
+        (consensus_step_seq_signed_dense), on one device or a mesh (each
+        rank verifying its own cells; the tile loop adds no
+        collective).  `dense` aligns with the last len(dense.sig)
+        phases of `phases` (leading phases, such as the entry phase,
+        carry no lanes); build both with VoteBatcher.
+        build_phases_device_dense.  Votes count the phases' masks less
+        the device's rejects, settled at collect."""
+        phases_st, exts_st, P = self._stack_seq(phases, exts)
+        out = self._dense_dispatch_fn(int(dense.sig.shape[0]))(
+            self.state, self.tally, exts_st, phases_st, dense)
+        return self._finish_step(out, P, phases_st.mask.sum(),
+                                 out.n_rejected)
 
     def step_async(self, phases, lanes=None, exts=None,
                    tick: Optional[int] = None) -> DeviceMessage:
@@ -323,33 +498,40 @@ class DeviceDriver:
         always deferred, whatever `defer_collect` says: call collect()
         or block_until_ready() when the stats are needed.
 
-        `lanes` selects the path: SignedLanes runs the fused signed
-        step; None runs the plain sequence (host-verified or unsigned
-        phases).  The dense signed layout raises NotImplementedError
-        (ROADMAP §1 item 5, with the mesh).  `tick` is the serve
-        plane's tick id: it
-        stamps the flight recorder's `dispatch` event, which carries the
-        step count and the lane count (the vote count is a device
-        scalar until collect)."""
+        `lanes` selects the path: SignedLanes runs the packed-lane fused
+        signed step (one device only: a mesh driver raises
+        NotImplementedError, as the twin does); DenseSignedPhases runs
+        the dense fused signed step, on one device or sharded on the
+        mesh; None runs the plain sequence (host-verified or unsigned
+        phases), sharded on a mesh.  `tick` is the serve plane's tick
+        id: it stamps the flight recorder's `dispatch` event, which
+        carries the step count and the lane count (the vote count is a
+        device scalar until collect)."""
         phases_st, exts_st, P = self._stack_seq(phases, exts)
         if lanes is None:
             out = self._unsigned(phases_st, exts_st)
-            n_votes, n_rejected = phases_st.mask.sum(), None
+            n_votes, n_rejected, n_lanes = phases_st.mask.sum(), None, None
+            entry = "consensus_step_seq"
+        elif isinstance(lanes, DenseSignedPhases):
+            out = self._dense_dispatch_fn(int(lanes.sig.shape[0]))(
+                self.state, self.tally, exts_st, phases_st, lanes)
+            n_votes, n_rejected = phases_st.mask.sum(), out.n_rejected
+            n_lanes = int(lanes.sig.shape[0]) * self.I * self.V
+            entry = "consensus_step_seq_signed_dense"
         elif isinstance(lanes, SignedLanes):
+            self._refuse_lanes_on_mesh()
             out = self._signed(phases_st, exts_st, lanes)
             n_votes, n_rejected = lanes.real.sum(), out.n_rejected
+            n_lanes = int(lanes.pub.shape[0])
+            entry = "consensus_step_seq_signed"
         else:
-            raise NotImplementedError(
-                f"step_async takes SignedLanes or None; the dense signed "
-                f"layout ({type(lanes).__name__}) comes with the mesh "
-                f"(ROADMAP §1 item 5)")
+            raise TypeError(f"step_async takes SignedLanes, "
+                            f"DenseSignedPhases or None, not "
+                            f"{type(lanes).__name__}")
         self.last_step_rejects = n_rejected
         if self.flightrec is not None:
-            self.flightrec.event(
-                "dispatch", tick=tick, phases=P,
-                lanes=None if lanes is None else int(lanes.pub.shape[0]),
-                entry=("consensus_step_seq" if lanes is None
-                       else "consensus_step_seq_signed"))
+            self.flightrec.event("dispatch", tick=tick, phases=P,
+                                 lanes=n_lanes, entry=entry)
         return self._finish_step(out, P, n_votes, n_rejected,
                                  force_defer=True)
 
@@ -367,22 +549,23 @@ class DeviceDriver:
             self.stats.votes_ingested += n_votes
         if n_rejected is not None:
             self._pending_rejects.append(n_rejected)
-        if self.defer_collect or force_defer:
-            self._deferred_msgs.append(out.msgs)
-        else:
-            self._collect(out.msgs)
-            self._settle_counts()
+        self._deferred_msgs.append(out.msgs)
+        if not (self.defer_collect or force_defer):
+            self.collect()
         return out.msgs
 
-    def _settle_counts(self) -> None:
-        """Fold the pending device-scalar counts into the stats: votes
-        in, device-verify rejects out (one device read each)."""
+    def _settle_counts(self, rejects=None) -> None:
+        """Fold the pending device counts into the stats: votes in,
+        device-verify rejects out (a scalar from the lane path, [I] from
+        the dense path; one device read each).  `rejects` replaces the
+        pending list (a mesh's gathered global counts)."""
         votes, self._pending_votes = self._pending_votes, []
-        rejects, self._pending_rejects = self._pending_rejects, []
+        if rejects is None:
+            rejects, self._pending_rejects = self._pending_rejects, []
         for v in votes:
             self.stats.votes_ingested += int(v)
         for r in rejects:
-            n = int(r)
+            n = int(r.sum())
             self.rejected_signature_device += n
             self.stats.votes_ingested -= n
 
@@ -397,9 +580,17 @@ class DeviceDriver:
         slots = torch.where(voters, slot, -1).to(I32)[None, :] \
             .expand(self.I, self.V).contiguous()
         mask = voters[None, :].expand(self.I, self.V).contiguous()
-        out = honest_heights(self.state, self.tally, slots, mask,
-                             self.powers, self.total, self.proposer_flag,
-                             self.propose_value, heights=n_heights)
+        if self.mesh is not None:
+            sp = self._sh.honest_specs()
+            fn = self._sharded_fn(self._sh.make_sharded_honest_heights,
+                                  heights=n_heights)
+            out = fn(self.state, self.tally, self._block(slots, sp[2]),
+                     self._block(mask, sp[3]), *self._common_blocks())
+        else:
+            out = honest_heights(self.state, self.tally, slots, mask,
+                                 self.powers, self.total,
+                                 self.proposer_flag, self.propose_value,
+                                 heights=n_heights)
         self._finish_step(out, 3 * n_heights, 2 * n_heights * self.I * int(
             voters.sum()))
 
@@ -410,6 +601,8 @@ class DeviceDriver:
         is preserved, so first-decision latching is unchanged).  One
         device-to-host copy for the whole batch."""
         host = torch.stack([msgs.tag, msgs.round, msgs.value]).cpu().numpy()
+        if host.shape[-1] != self.I:
+            raise ValueError("a mesh rank's message block: gather first")
         n_stages = msgs.tag.shape[-2]
         tags = host[0].reshape(-1, self.I)
         dec = tags == int(MsgTag.DECISION)
@@ -434,9 +627,27 @@ class DeviceDriver:
         decision latching is order-sensitive), and settle the pending
         vote and rejected-lane counts."""
         msgs, self._deferred_msgs = self._deferred_msgs, []
+        rejects = None
+        if self.mesh is not None:
+            msgs, rejects = self._gather_collect(msgs)
         for m in msgs:
             self._collect(m)
-        self._settle_counts()
+        self._settle_counts(rejects)
+
+    def _gather_collect(self, msgs):
+        """A mesh's collect: every queued message batch's (tag, round,
+        value) and every pending rejected count, global, in one
+        all_gather."""
+        rejects, self._pending_rejects = self._pending_rejects, []
+        leaves = [x for m in msgs for x in (m.tag, m.round, m.value)]
+        specs = [self._sh.msgs_spec(x.ndim) for x in leaves]
+        specs += [(self._sh.DATA,)] * len(rejects)
+        if not specs:
+            return [], []
+        g = self._sh.gather_tree(self.mesh, leaves + rejects, specs)
+        out = [DeviceMessage(*g[k:k + 3], aux=None)
+               for k in range(0, len(leaves), 3)]
+        return out, g[len(leaves):]
 
     def block_until_ready(self) -> "DeviceDriver":
         """collect(), then wait for the driver's device."""
@@ -447,11 +658,18 @@ class DeviceDriver:
 
     def equivocators_detected(self) -> np.ndarray:
         """[I] count of flagged validators per instance."""
-        return self.tally.equiv.sum(dim=1).cpu().numpy()
+        equiv = self.tally.equiv
+        if self.mesh is not None:
+            equiv = self._sh.gather_tree(self.mesh, [equiv],
+                                         [self._sh.step_specs()[1].equiv])[0]
+        return equiv.sum(dim=1).cpu().numpy()
 
     def state_copies(self):
-        """Independent (state, tally) copies (tensor clones), e.g. for
-        warmup dispatches that must not touch the live state."""
+        """Independent (state, tally) copies, e.g. for warmup dispatches
+        that must not touch the live state: clones, or on a mesh the
+        global state gathered from every rank's block."""
+        if self.mesh is not None:
+            return self._sh.gather_state(self.mesh, self.state, self.tally)
         return (DeviceState(*[t.clone() for t in self.state]),
                 TallyState(*[t.clone() for t in self.tally]))
 

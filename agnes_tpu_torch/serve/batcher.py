@@ -24,8 +24,11 @@ verify workspace (`utils/budget.VERIFY_WORKSPACE_LANE_BYTES`, 1,536 B a
 lane against the twin's modelled 10,240 B), and a CPU device has no
 default budget, so a CPU caller passes `hbm_bytes`.  On a shape the
 budget binds, the port's top rung may be larger than the twin's, by
-design.  The twin's `plan_dense` waits with the dense step (ROADMAP §1
-item 5).
+design.  `plan_dense` is the dense dispatch mode's ladder: its rungs
+only pace the votes a micro-batch carries, and the dense verify of the
+deployment (per device, `utils/budget.mesh_local_shape`) must fit the
+budget at least chunked (`plan_dense_verify` at the port's dense
+workspace).
 
 The batch-fill ratio (votes / rung) is the utilization number: padding
 lanes do real work on the card.
@@ -37,7 +40,11 @@ import dataclasses
 import time
 from typing import Optional, Tuple
 
-from agnes_tpu_torch.utils.budget import BudgetError, plan_lane_verify
+from agnes_tpu_torch.utils.budget import (
+    BudgetError,
+    plan_dense_verify,
+    plan_lane_verify,
+)
 
 
 def _ceil_pow2(n: int) -> int:
@@ -113,6 +120,56 @@ class ShapeLadder:
             raise BudgetError(
                 f"no ladder rung >= {min_rung} fits the memory budget "
                 f"(shape {n_instances}x{n_validators})")
+        return cls(rungs=tuple(rungs))
+
+    @classmethod
+    def plan_dense(cls, n_instances: int, n_validators: int,
+                   local_shape: Optional[Tuple[int, int]] = None,
+                   n_classes: int = 2,
+                   max_votes: Optional[int] = None, min_rung: int = 256,
+                   hbm_bytes: Optional[int] = None,
+                   n_hosts: int = 1,
+                   n_live: Optional[int] = None) -> "ShapeLadder":
+        """The ladder of the dense dispatch mode (mesh serving).  A dense
+        step's shape is (P, I, V), fixed by the deployment, so the rungs
+        only pace how many votes a micro-batch carries (host densify
+        and latency).  What the budget checks instead is the deployment:
+        the dense verify of `n_classes` signed classes over the
+        per-device `local_shape` (utils/budget.mesh_local_shape;
+        default the whole shape over the live hosts) must fit
+        `hbm_bytes` (default the card's) at least chunked, or
+        `plan_dense_verify` raises BudgetError here, at plan time.
+
+        `n_hosts` / `n_live` are the pod's (ROADMAP §1 item 6), as in
+        the twin: the top rung is one full both-classes tick of the
+        instance slice one live host serves, n_instances / n_live; a
+        deployment that does not split evenly raises ValueError."""
+        nh = max(1, int(n_hosts))
+        live = int(n_live) if n_live is not None else nh
+        if not 1 <= live <= nh:
+            raise ValueError(
+                f"live membership {live} outside [1, {nh}]")
+        if n_instances % nh:
+            raise ValueError(
+                f"{n_instances} instances do not shard evenly over "
+                f"{n_hosts} hosts")
+        if n_instances % live:
+            raise ValueError(
+                f"{n_instances} instances do not repartition evenly "
+                f"over {live} live host(s)")
+        li, lv = (local_shape if local_shape is not None
+                  else (n_instances // live, n_validators))
+        plan_dense_verify(n_classes, li, lv, hbm_bytes=hbm_bytes)
+        top_want = 2 * (n_instances // live) * n_validators
+        if max_votes is not None:
+            top_want = min(top_want, int(max_votes))
+        min_rung = _ceil_pow2(min_rung)
+        top = max(_ceil_pow2(top_want), min_rung)
+        rungs = []
+        r = min_rung
+        while r <= top:
+            rungs.append(r)
+            r <<= 1
         return cls(rungs=tuple(rungs))
 
     def with_bls(self, n_validators: int, min_rung: int = 16,

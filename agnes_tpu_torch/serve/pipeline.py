@@ -51,9 +51,18 @@ build_phases_device) when the window and slot table it assumed are the
 ones just synced and nothing else is pending; otherwise it builds the
 plain columns the Python way.  `native_phase_builds` counts adoptions.
 
-Not ported yet: the dense dispatch mode with the mesh (ROADMAP §1 item
-5), and the pod's padding primitives (`pad_staged_to`, `stage_padding`,
-item 6).
+Dense dispatch mode (`dense=True`; the default when the driver has a
+mesh, as in the twin): builds go through `build_phases_device_dense`
+and dispatch the dense fused signed step, whose shape (P, I, V) is the
+deployment's, so the ladder (ShapeLadder.plan_dense) only paces the
+votes a micro-batch carries and warmup launches one shape per P.  The
+native adopt branch is off in dense mode (its drain fills packed lanes).
+Dense serving runs on one card: a driver on a one-rank mesh, or
+`dense=True` over a plain driver.  A driver whose mesh has several ranks
+is refused (NotImplementedError): serving across processes needs the
+pod's routing of submitted votes to ranks (ROADMAP §1 item 6), which
+also brings the pod's padding primitives (`pad_staged_to`,
+`stage_padding`).
 """
 
 from __future__ import annotations
@@ -67,7 +76,11 @@ import numpy as np
 import torch
 
 from agnes_tpu_torch.device.encoding import I32, stack_tuples
-from agnes_tpu_torch.device.step import SignedLanes, VotePhase
+from agnes_tpu_torch.device.step import (
+    DenseSignedPhases,
+    SignedLanes,
+    VotePhase,
+)
 from agnes_tpu_torch.serve.batcher import ShapeLadder
 from agnes_tpu_torch.serve.queue import PhaseBuildState
 from agnes_tpu_torch.types import NIL_ID
@@ -78,7 +91,7 @@ class _StagedBatch:
     """A densified batch waiting for its dispatch."""
 
     phases: list               # [VotePhase]
-    lanes: object              # SignedLanes | None (host-verified)
+    lanes: object              # SignedLanes | DenseSignedPhases | None
     entry: bool                # entry phase prepended?
     entry_heights: Optional[np.ndarray]
     n_votes: int
@@ -113,6 +126,7 @@ class ServePipeline:
     def __init__(self, driver, batcher, pubkeys: Optional[np.ndarray],
                  ladder: ShapeLadder,
                  window_predictor: Optional[Callable] = None,
+                 dense: Optional[bool] = None,
                  cache=None,
                  bls_lane=None,
                  tracer=None,
@@ -127,7 +141,17 @@ class ServePipeline:
         dispatch's digests iff its verify rejected zero lanes.
         `bls_lane` (serve/bls_lane.BlsLane): closed classes are
         aggregated, pairing-checked and fed down the same unsigned
-        path."""
+        path.  `dense` selects the dense dispatch mode (module
+        docstring); None picks it when the driver has a mesh.  A driver
+        on a mesh of several ranks raises NotImplementedError."""
+        mesh = getattr(driver, "mesh", None)
+        if mesh is not None and mesh.mesh.numel() > 1:
+            raise NotImplementedError(
+                f"serving over a mesh of {mesh.mesh.numel()} ranks needs "
+                f"the pod's routing of submitted votes to ranks (ROADMAP "
+                f"§1 item 6); serve dense on one card (a one-rank mesh, "
+                f"or dense=True)")
+        self.dense = dense if dense is not None else mesh is not None
         self.driver = driver
         self.batcher = batcher
         self.pubkeys = pubkeys          # None = unsigned deployment
@@ -227,8 +251,9 @@ class ServePipeline:
         """The PhaseBuildState a native phase drain densifies against,
         or None where this deployment cannot adopt one: no window
         predictor (the drain runs before _sync_window, so only a
-        predicted window avoids reading the card), unsigned, or MSM
-        verify mode.  The service wires this as the native queue's
+        predicted window avoids reading the card), unsigned, dense
+        dispatch mode (the drain fills packed lanes), or MSM verify
+        mode.  The service wires this as the native queue's
         `phase_state` hook; it runs once a drain, on the drain's thread.
 
         The slot table is the batcher's as the predicted window will
@@ -237,7 +262,7 @@ class ServePipeline:
         and that table are what the sync produced; correctness never
         rests on the prediction, only the fast path does."""
         if (self.window_predictor is None or self.pubkeys is None
-                or self.batcher.verify_mode != "lanes"):
+                or self.dense or self.batcher.verify_mode != "lanes"):
             return None
         base, hts = self.window_predictor()
         hts = np.asarray(hts, np.int64)
@@ -298,7 +323,7 @@ class ServePipeline:
                 ph = batch.native_phases
                 bat = self.batcher
                 if (ph is not None and bat.pending_votes == 0
-                        and self.pubkeys is not None
+                        and self.pubkeys is not None and not self.dense
                         and bat.verify_mode == "lanes"
                         and np.array_equal(ph.heights, bat.heights)
                         and np.array_equal(ph.base_round, bat.base_round)
@@ -369,8 +394,12 @@ class ServePipeline:
         if preverified:
             return self._stage_preverified(hts, t_first, cap)
         if self.pubkeys is not None:
-            phases, lanes = self.batcher.build_phases_device(
-                self.pubkeys, phase_offset=1, max_votes=cap)
+            if self.dense:
+                phases, lanes = self.batcher.build_phases_device_dense(
+                    self.pubkeys, max_votes=cap)
+            else:
+                phases, lanes = self.batcher.build_phases_device(
+                    self.pubkeys, phase_offset=1, max_votes=cap)
             if self.cache is not None and lanes is not None:
                 keys = self.batcher.last_build_keys
         else:
@@ -563,10 +592,12 @@ class ServePipeline:
         default — and, with a cache or a BLS lane, the unsigned sequence
         per P; with a BLS lane every `bls_aggregate` rung and, when it
         pairs on the card, every pairing class rung.  Records
-        `warmed_keys`.  With a retrace sentinel on the driver every
-        launch is observed into the expected set, and `arm` closes it:
-        a later dispatch at an unwarmed shape raises.  Returns the
-        shapes warmed."""
+        `warmed_keys`.  In dense mode a signed shape is one a P (the
+        dense step's shape is (P, I, V)): ("dense_signed", P), on
+        all-zero dense lanes through the driver's own dense dispatch.
+        With a retrace sentinel on the driver every launch is observed
+        into the expected set, and `arm` closes it: a later dispatch at
+        an unwarmed shape raises.  Returns the shapes warmed."""
         if self.pubkeys is None and self.bls_lane is None:
             return 0
         if isinstance(n_phases, int):
@@ -575,10 +606,30 @@ class ServePipeline:
         dev = d.device
         zero_hts = np.zeros(d.I, np.int64)
         warmed = 0
+        def copies():
+            state, tally = d.state_copies()
+            if getattr(d, "mesh", None) is None:
+                return state, tally
+            from agnes_tpu_torch.parallel import place_step_state
+
+            return place_step_state(d.mesh, state, tally)
+
         for P in n_phases:
             phases_st = stack_tuples([self._entry_phase(zero_hts)] * P)
             exts_st = stack_tuples([d.ext()] * P)
-            if self.pubkeys is not None:
+            if self.pubkeys is not None and self.dense:
+                Ps = max(P - 1, 1)           # the entry carries no lanes
+                dense = DenseSignedPhases(
+                    pub=torch.zeros((d.V, 32), dtype=I32, device=dev),
+                    sig=torch.zeros((Ps, d.I, d.V, 64), dtype=I32,
+                                    device=dev),
+                    blocks=torch.zeros((Ps, d.I, d.V, 1, 32), dtype=I32,
+                                       device=dev))
+                d._dense_dispatch_fn(Ps)(*copies(), exts_st, phases_st,
+                                         dense)
+                self.warmed_keys.add(("dense_signed", P))
+                warmed += 1
+            elif self.pubkeys is not None:
                 for r in self.ladder.rungs:
                     lanes = SignedLanes(
                         pub=torch.zeros((r, 32), dtype=I32, device=dev),
@@ -597,7 +648,7 @@ class ServePipeline:
             if self.cache is not None or self.bls_lane is not None:
                 # pre-verified builds (cache hits and cleared BLS rows)
                 # ride the unsigned sequence: one shape per P
-                d._unsigned(phases_st, exts_st, *d.state_copies())
+                d._unsigned(phases_st, exts_st, *copies())
                 self.warmed_keys.add(("unsigned", P))
                 warmed += 1
         if self.bls_lane is not None and self.ladder.bls_rungs:

@@ -27,8 +27,11 @@ shards), whose drain also densifies eligible batches straight into the
 signed step's arrays for the pipeline to adopt.  Decisions are the same
 either way; serve/threaded.py runs a service on socket-facing threads.
 
-Runs on the card unless built over a CPU driver and batcher.  Not ported
-yet: mesh drivers (ROADMAP §1 item 5).
+Runs on the card unless built over a CPU driver and batcher.  Over a
+driver with a mesh the service plans the dense ladder
+(`ShapeLadder.plan_dense` on the rank's block) and the pipeline takes
+the dense dispatch mode, as in the twin; serving over a mesh of several
+ranks waits for the pod (ROADMAP §1 item 6) and is refused.
 """
 
 from __future__ import annotations
@@ -151,9 +154,10 @@ class VoteService:
         the verified-vote dedup layer and needs `pubkeys`.  `bls_lane`
         (serve/bls_lane.BlsLane) attaches the BLS aggregate lane, beside
         or without Ed25519 pubkeys.  The default ladder is
-        `ShapeLadder.plan(I, V)` at the driver's `hbm_budget_bytes` or
-        the card's memory; a CPU service is given a ladder, or a driver
-        with a budget.  `flightrec` (utils/flightrec.FlightRecorder) is
+        `ShapeLadder.plan(I, V)`, or over a mesh driver
+        `ShapeLadder.plan_dense` on the rank's block (the dense dispatch
+        mode), at the driver's `hbm_budget_bytes` or the card's memory;
+        a CPU service is given a ladder, or a driver with a budget.  `flightrec` (utils/flightrec.FlightRecorder) is
         also handed to the driver.
 
         `native_admission` swaps the admission queue for its C++ twin
@@ -187,7 +191,13 @@ class VoteService:
                 raise ValueError(
                     "a CPU service has no memory budget: pass a ladder "
                     "(or a driver with hbm_budget_bytes)")
-            ladder = ShapeLadder.plan(I, V, hbm_bytes=hbm)
+            if getattr(driver, "mesh", None) is not None:
+                # dense dispatch mode: the step's shape is the
+                # deployment's; plan the budget on the rank's block
+                ladder = ShapeLadder.plan_dense(
+                    I, V, local_shape=driver._local_shape(), hbm_bytes=hbm)
+            else:
+                ladder = ShapeLadder.plan(I, V, hbm_bytes=hbm)
         if bls_lane is not None and not ladder.bls_rungs:
             ladder = ladder.with_bls(V)
         self.ladder = ladder

@@ -4,23 +4,26 @@ half of `agnes_tpu.utils.budget`).
 At the north-star shape (2 vote classes x 10,000 instances x 1,000
 validators = 20,000,000 lanes) the packed lanes alone are 512 B a lane,
 10.24 GB on the card, and the verify's per-lane temporaries come on top.
-`plan_lane_verify` sizes verify microbatches so the step (`device/step.py`, `verify_chunk`) streams tiles through the
+`plan_lane_verify` (packed lanes) and `plan_dense_verify` (the dense
+[Ps, I, V] cells, tiled by instance rows) size verify microbatches so
+the step (`device/step.py`, `verify_chunk`) streams tiles through the
 same kernel with a bounded peak; every lane's verdict is independent
 integer math, so chunked and unchunked runs agree lane for lane.
+`mesh_local_shape` is the (instances, validators) block one rank of a
+mesh holds, the shape a per-device plan bounds.
 
 The budget is the card's whole memory (`device_hbm_bytes`), with the
 lanes resident inside it.  A CPU device has no budget: callers there
 pass `hbm_bytes`.  Pure arithmetic otherwise: nothing is allocated.
 
-Waiting for later slices: `plan_dense_verify`, `dense_resident_bytes`
-and `mesh_local_shape` (the dense step and the mesh) and the `Deadline`
-/ timeout half of the twin (the benchmark tooling).
+Waiting for a later slice: the `Deadline` / timeout half of the twin
+(the benchmark tooling, ROADMAP §1 item 7a).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -114,6 +117,113 @@ def device_hbm_bytes(device="cuda") -> int:
 
 def _budget(hbm_bytes: Optional[int]) -> int:
     return device_hbm_bytes() if hbm_bytes is None else int(hbm_bytes)
+
+
+def dense_resident_bytes(n_phases: int, n_instances: int,
+                         n_validators: int, n_blocks: int = 1,
+                         n_seq_phases: Optional[int] = None) -> int:
+    """Persistent memory of the dense fused signed step: the full sig
+    and blocks tensors (they stay resident while tiles stream), the
+    pubkey table, the dense phase tensors and verdict mask, and the
+    tally's per-validator arrays (voted and equiv; a 4-round window of
+    2 classes).  The twin's formula."""
+    P = n_seq_phases if n_seq_phases is not None else n_phases + 1
+    lanes = n_phases * n_instances * n_validators
+    cells = n_instances * n_validators
+    sig = lanes * SIG_LANE_BYTES
+    blocks = lanes * n_blocks * BLOCK_LANE_BYTES
+    pub_table = n_validators * PUB_LANE_BYTES
+    # phases: slots int32 + mask bool per (seq phase, cell); vmask bool
+    phases = P * cells * (4 + 1) + P * cells
+    # tally: voted [I, W=4, 2, V] int32 + equiv [I, V] bool
+    tally = cells * 4 * 2 * 4 + cells
+    return sig + blocks + pub_table + phases + tally
+
+
+def plan_dense_verify(n_phases: int, n_instances: int, n_validators: int,
+                      n_blocks: int = 1,
+                      hbm_bytes: Optional[int] = None,
+                      safety: float = 0.9,
+                      workspace_lane_bytes: Optional[int] = None,
+                      ) -> VerifyPlan:
+    """Size the instance-row tile of the dense fused signed step
+    (`consensus_step_seq_signed_dense`): the largest power-of-two row
+    count whose tile fits the memory left after the resident operands;
+    a lane of a tile costs `workspace_lane_bytes` plus its pub
+    broadcast.  `tile` counts instance rows (n_phases * n_validators
+    lanes each).  The default workspace is VERIFY_WORKSPACE_LANE_BYTES
+    plus the tile's contiguous copy of its sig and n_blocks blocks,
+    which a tile of Ps > 1 classes cuts out of the [Ps, I, V] layout
+    (`device/step._verify_dense`; the lane path's chunks are views): a
+    departure from the twin, whose formula this is with the twin's
+    workspace passed.  Raises BudgetError when even a one-row tile does
+    not fit, ValueError on an empty shape."""
+    if min(n_phases, n_instances, n_validators) <= 0:
+        raise ValueError("n_phases/n_instances/n_validators must be >= 1")
+    if workspace_lane_bytes is None:
+        workspace_lane_bytes = (VERIFY_WORKSPACE_LANE_BYTES + SIG_LANE_BYTES
+                                + n_blocks * BLOCK_LANE_BYTES)
+    hbm = _budget(hbm_bytes)
+    resident = dense_resident_bytes(n_phases, n_instances, n_validators,
+                                    n_blocks)
+    avail = hbm * safety - resident
+    # a tile's lane: the verify workspace plus the [Ps, tile, V, 32]
+    # int32 pub broadcast the tile materializes
+    lane_cost = workspace_lane_bytes + PUB_LANE_BYTES
+    row_lanes = n_phases * n_validators
+    max_rows = int(avail // (row_lanes * lane_cost))
+    if max_rows < 1:
+        raise BudgetError(
+            f"dense fused verify cannot fit {n_phases}x{n_instances}x"
+            f"{n_validators} (nb={n_blocks}) in {hbm / GIB:.2f} GiB: "
+            f"resident {resident / GIB:.2f} GiB leaves "
+            f"{max(avail, 0) / GIB:.2f} GiB, one instance row needs "
+            f"{row_lanes * lane_cost / GIB:.3f} GiB")
+    tile = min(n_instances, _floor_pow2(max_rows))
+    return VerifyPlan(
+        n_phases=n_phases, n_instances=n_instances,
+        n_validators=n_validators, n_blocks=n_blocks,
+        tile=tile, n_chunks=-(-n_instances // tile),
+        lanes_per_chunk=tile * row_lanes,
+        resident_bytes=resident,
+        chunk_bytes=tile * row_lanes * lane_cost,
+        hbm_bytes=hbm, safety=safety)
+
+
+def mesh_local_shape(mesh, n_instances: int, n_validators: int,
+                     n_hosts: int = 1,
+                     n_live: Optional[int] = None) -> Tuple[int, int]:
+    """(instances, validators) as one rank of `mesh` (parallel/mesh.py,
+    a DeviceMesh) holds them: instances split over its data axes
+    (`slice` and `data`), validators over `val`.  `mesh` None is one
+    device.  Shared by DeviceDriver's chunk planning and
+    ShapeLadder.plan_dense.
+
+    `n_hosts` and `n_live` are the pod's (ROADMAP §1 item 6), as in the
+    twin: where `n_instances` is already one host's slice of a mesh
+    spanning `n_hosts` hosts, the data extent one host owns is the
+    mesh's over the live host count (`n_live`, default `n_hosts`); the
+    caller passes the slice the live owner serves.  ValueError when
+    the live count is outside [1, n_hosts] or does not split the data
+    extent."""
+    if mesh is None:
+        return int(n_instances), int(n_validators)
+    from agnes_tpu_torch.parallel.mesh import DATA_AXIS, SLICE_AXIS, VAL_AXIS
+
+    live = int(n_live) if n_live is not None else int(n_hosts)
+    if not 1 <= live <= max(1, int(n_hosts)):
+        raise ValueError(
+            f"live membership {live} outside [1, {n_hosts}]")
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n_data = shape.get(DATA_AXIS, 1) * shape.get(SLICE_AXIS, 1)
+    if live > 1:
+        if n_data % live:
+            raise ValueError(
+                f"mesh data extent {n_data} does not split over "
+                f"{live} live host(s)")
+        n_data //= live
+    return (int(n_instances) // n_data,
+            int(n_validators) // shape.get(VAL_AXIS, 1))
 
 
 def plan_lane_verify(n_lanes: int, n_blocks: int = 1,

@@ -62,7 +62,11 @@ def save_driver(driver, path: str) -> None:
     """Snapshot a harness.DeviceDriver (device tensors + stats) to
     `path` (.npz).  Pending vote and device-verify reject counts are
     settled first, so `stats` and `meta` are the twin's at the same
-    point."""
+    point.  A driver on a mesh holds only its rank's block: refused
+    (NotImplementedError)."""
+    if getattr(driver, "mesh", None) is not None:
+        raise NotImplementedError("save_driver takes a one-device driver; "
+                                  "a mesh driver holds its rank's block")
     driver._settle_counts()
     leaves = {}
     for name, t in zip(DeviceState._fields, driver.state):

@@ -245,6 +245,29 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      device peak against the top rung's plan, (d)'s busy shares of its
      submit and dispatch threads, and the phase's wall
      (`native_serve_phase`).
+  12. the dense signed step and the mesh (`dense_mesh_phase`): (a) phase
+     3's traffic at I = 1,024 x V = 1,000 through
+     `VoteBatcher.build_phases_device_dense` ->
+     `DeviceDriver.step_seq_signed_dense` (2,048,000 dense cells, one
+     verify launch), held leaf for leaf against phase 3's packed-lane
+     height (state, tally, decisions, 2 x 1,024 rejected), the kernel
+     against plain on every dense cell of 16 sampled instance rows
+     (their forged cells among them), the step's peak against
+     `plan_dense_verify(...).peak_bytes`, then the same height through
+     `step_async` under sync debug mode "error"; (b) the dense height at
+     the north-star shape, 10,000 x 1,000 (20,000,000 cells), with
+     `verify_chunk="auto"` at the card's memory and under half of it:
+     launches == the plan's chunks, the peak at or under the plan,
+     decisions == phase 3n's, the host's peak RSS; (c) the sharded dense
+     step on NCCL, a world of one rank (`file://` rendezvous) on a 1 x 1
+     mesh at (a)'s shape, gathered and held leaf for leaf against (a),
+     its collective census printed, and where the machine has two or
+     more cards a 1 x 2 (val) mesh over two spawned ranks at the same
+     shape (`_mesh_rank`); (d) phase 8's three heights served by a
+     VoteService whose driver sits on (c)'s mesh (the dense ladder and
+     dense mode, warmup armed), the pump loop under sync debug mode
+     "error": phase 8's served driver leaf for leaf, one verify launch a
+     height, the served votes/s and the peak against the dense plan.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -252,7 +275,8 @@ rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
 that launch's 200 lanes, and with `launches_native_phase`, the C++
 loop's launches in phase 10, and that phase's stage tables, and with
 `launches_native_serve_phase`, phase 11's launches, and its runs'
-numbers under `native_serve`),
+numbers under `native_serve`, and with `launches_dense_phase`, phase
+12's launches on its paths, and its numbers under `dense`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -263,6 +287,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -293,6 +318,8 @@ N_NATIVE_SAMPLE = 16_384           # phase 10: the loop's lanes held against pla
 NATIVE_SERVE_SHARDS = 4            # phase 11: the sharded run's shards
 NATIVE_SERVE_PRODUCERS = 4         # phase 11: threads feeding the threaded host
 NATIVE_SERVE_CHUNK = 16_384        # phase 11: records a submitted blob
+DENSE_SAMPLE_ROWS = 16             # phase 12: instance rows held against plain
+MESH_JOIN_S = 600                  # phase 12: the spawned ranks' deadline
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -2953,6 +2980,534 @@ def native_serve_phase(seeds, pubkeys, sigs, ref) -> dict:
             "native_serve": out}
 
 
+def _dense_plain_sample(dense, rng):
+    """The verify kernel against plain on every dense cell of
+    DENSE_SAMPLE_ROWS sampled instance rows (both classes, so their
+    forged cells too): (cells, mismatches, max_abs_err, forged cells,
+    verdicts right)."""
+    import torch
+
+    from agnes_tpu_torch.crypto import verify as V
+
+    Ps, I, Vn = dense.sig.shape[:3]
+    rows = torch.from_numpy(rng.choice(I, DENSE_SAMPLE_ROWS,
+                                       replace=False)).to(dense.sig.device)
+    sig = dense.sig[:, rows].reshape(-1, 64)
+    blocks = dense.blocks[:, rows].reshape((-1,) + dense.blocks.shape[3:])
+    pub = dense.pub[None, None].expand(Ps, DENSE_SAMPLE_ROWS, Vn, 32) \
+        .reshape(-1, 32)
+    args, ok_s = V.prologue(pub, sig, blocks)
+    got = V.verify_signed5(*args)
+    plain = V.verify_plain(*args)
+    mism, max_err = compare(got, plain)
+    ok = ((got > 0) & ok_s).reshape(Ps, DENSE_SAMPLE_ROWS, Vn).cpu()
+    is_forged = torch.zeros((Ps, DENSE_SAMPLE_ROWS, Vn), dtype=torch.bool)
+    is_forged[:, :, FORGED] = True
+    right = not bool(ok[is_forged].any()) and bool(ok[~is_forged].all())
+    return int(sig.shape[0]), mism, max_err, int(is_forged.sum()), right
+
+
+def _dense_build(I, seeds, pubkeys, sigs, classes):
+    """build_phases_device_dense of phase 3's traffic at I instances:
+    (phases, dense, seconds of the host build ending in a sync, the
+    batcher)."""
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.harness import fixtures as fx
+
+    cols = [fx.full_mesh_cols(I, V_SIGNED, seeds, 0, typ, VALUE,
+                              sigs=sigs[c]) for c, typ in enumerate(classes)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bat = VoteBatcher(I, V_SIGNED, n_slots=4, device=DEVICE)
+    for c in cols:
+        bat.add_arrays(*c)
+    phases, dense = bat.build_phases_device_dense(pubkeys)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if dense is None or len(phases) != 2:
+        raise AssertionError(f"the dense build at I={I} left the device "
+                             f"path")
+    return [p for p, _ in phases], dense, t_build, bat
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, in_path: str,
+               out_path: str) -> None:
+    """One spawned rank of phase 12(c)'s 1 x `world` (val) NCCL mesh:
+    rebuilds (a)'s dense height from the fixture's signatures, steps it
+    sharded, and rank 0 writes whether the gathered result equals (a)'s,
+    with the census."""
+    import torch
+    import torch.distributed as dist
+
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        data = torch.load(in_path)
+        seeds = fx.deterministic_seeds(V_SIGNED)
+        sigs = [s.numpy() for s in data["sigs"]]
+        phases, dense, _, _ = _dense_build(I_SIGNED, seeds,
+                                        fx.validator_pubkeys(seeds), sigs,
+                                        data["classes"])
+        mesh = make_mesh(1, world)
+        d = DeviceDriver(I_SIGNED, V_SIGNED, advance_height=True, mesh=mesh,
+                         device=DEVICE)
+        V.LAUNCHES = 0
+        d.step_seq_signed_dense([d.empty_phase()] + phases, dense)
+        d.collect()
+        launches = V.LAUNCHES
+        census = [dict(fn.last_census) for fn in d._sharded.values()]
+        state, tally = d.state_copies()
+        got = [x.cpu() for x in list(state) + list(tally)]
+        same = (len(got) == len(data["leaves"])
+                and all(torch.equal(a, b)
+                        for a, b in zip(got, data["leaves"]))
+                and d.rejected_signature_device == data["rejected"]
+                and bool(torch.equal(torch.from_numpy(d.stats.decision_value),
+                                     data["decision_value"])))
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump({"same": same, "launches_rank0": launches,
+                           "census": census,
+                           "rejected": d.rejected_signature_device}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(world: int, classes, sigs, ref) -> dict:
+    """Phase 12(c)'s two-card run: `world` spawned ranks, each join
+    bounded by MESH_JOIN_S; a rank that fails or overruns fails the
+    phase (its processes are killed)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="agnes-mesh-")
+    try:
+        torch.save({"sigs": [torch.from_numpy(s) for s in sigs],
+                    "classes": list(classes), "leaves": ref["leaves"],
+                    "rejected": ref["rejected"],
+                    "decision_value": torch.from_numpy(
+                        ref["stats"]["decision_value"])},
+                   os.path.join(tmp, "in.pt"))
+        ctx = mp.start_processes(
+            _mesh_rank, args=(world, os.path.join(tmp, "rendezvous"),
+                              os.path.join(tmp, "in.pt"),
+                              os.path.join(tmp, "out.json")),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            while not ctx.join(timeout=max(1.0, deadline
+                                           - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the {world}-rank mesh did not "
+                                         f"finish in {MESH_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        with open(os.path.join(tmp, "out.json")) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dense_mesh_phase(seeds, pubkeys, sigs, lane_ref, north_decisions,
+                     serve_sigs, serve_ref, bound) -> dict:
+    """Phase 12: the dense signed step and the mesh; see the module
+    docstring.  `lane_ref` is phase 3's packed-lane height (leaves on
+    the host, stats, rejected), `north_decisions` phase 3n's decisions,
+    `serve_sigs` / `serve_ref` phase 8's signatures and served driver.
+    Returns the numbers for the verify kernel's line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.parallel import make_mesh
+    from agnes_tpu_torch.types import VoteType
+    from agnes_tpu_torch.utils import budget
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = smi("name,power.limit")
+    hbm = budget.device_hbm_bytes(dev)
+    classes = (int(VoteType.PREVOTE), int(VoteType.PRECOMMIT))
+    I, Vn = I_SIGNED, V_SIGNED
+    rng = np.random.RandomState(SEED + 12)
+    out = {}
+    clock = StageClock(dev)
+
+    def step_timed(run):
+        """run() under CUDA events, the verify prologue and kernel timed
+        inside it: (step ms, prologue ms, kernel ms, launches, peak B,
+        allocated before B)."""
+        clock.reset()
+        clock.events(V, "prologue", "prologue")
+        clock.events(V, "verify_signed5", "kernel")
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            V.LAUNCHES = 0
+            ev[0].record()
+            run()
+            ev[1].record()
+            torch.cuda.synchronize()
+            launches = V.LAUNCHES
+            return (ev[0].elapsed_time(ev[1]), clock.device_ms("prologue"),
+                    clock.device_ms("kernel"), launches,
+                    torch.cuda.max_memory_allocated(), before)
+        finally:
+            clock.restore()
+
+    # -- (a) the dense signed height at 1,024 x 1,000 ----------------------
+    phases, dense, t_build, _ = _dense_build(I, seeds, pubkeys, sigs,
+                                             classes)
+    n_cells = int(dense.sig.shape[0]) * I * Vn
+    plan_a = budget.plan_dense_verify(2, I, Vn, hbm_bytes=hbm)
+    da = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    seq = [da.empty_phase()] + phases
+    ms_a, pro_a, ker_a, launches_a, peak_a, before_a = step_timed(
+        lambda: da.step_seq_signed_dense(seq, dense))
+    a_leaves = [x.cpu() for x in _leaves(da)]
+    checks = {
+        "one verify launch of every cell": launches_a == 1,
+        "state and tally == phase 3's lane height, leaf for leaf":
+            _same_leaves(a_leaves, lane_ref["leaves"]),
+        "decisions == phase 3's": all(
+            np.array_equal(getattr(da.stats, f), lane_ref["stats"][f])
+            for f in ("decided", "decision_value", "decision_round")),
+        "rejected == 2I == phase 3's":
+            da.rejected_signature_device == 2 * I == lane_ref["rejected"],
+        "step peak <= plan.peak_bytes": peak_a <= plan_a.peak_bytes,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"dense height failed: {checks}; "
+                             f"{plan_a.describe()}; peak {peak_a} B, "
+                             f"launches {launches_a}")
+    n_s, mism_a, err_a, n_forged, right = _dense_plain_sample(dense, rng)
+    if mism_a or not right:
+        raise AssertionError(f"dense cells: kernel != plain on {mism_a} of "
+                             f"{n_s}, or a forged cell passed / an honest "
+                             f"one failed")
+    # the same height through step_async: nothing read back, no sync
+    asy = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    seq2 = [asy.empty_phase()] + phases
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        asy.step_async(seq2, dense)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    asy.collect()
+    if not (_same_leaves(_leaves(asy), _leaves(da))
+            and asy.rejected_signature_device == da.rejected_signature_device
+            and np.array_equal(asy.stats.decision_value,
+                               da.stats.decision_value)):
+        raise AssertionError("dense step_async != step_seq_signed_dense")
+    bound_a, by_a = bound(V.INT32_OPS_PER_LANE * n_cells,
+                          V.BYTES_PER_LANE * n_cells)
+    rate_a = n_cells / (t_build + ms_a / 1e3)
+    log(f"[dense] I={I} V={Vn} cells={n_cells}: host build "
+        f"(build_phases_device_dense) {t_build:.3f} s, step {ms_a:.3f} ms "
+        f"(CUDA events; prologue {pro_a:.3f} ms, verify kernel "
+        f"{ker_a:.3f} ms in {launches_a} launch, bound {bound_a:.3f} ms "
+        f"{by_a}), verified votes/s={rate_a:.0f} (step only "
+        f"{n_cells / ms_a * 1e3:.0f}); rejected "
+        f"{da.rejected_signature_device}; state, tally and decisions == "
+        f"phase 3's lane height; card {card}")
+    log(f"[dense] step peak {peak_a / 2**30:.3f} GiB (allocated before "
+        f"{before_a / 2**30:.3f} GiB) against {plan_a.describe()}; kernel "
+        f"== plain on {n_s} cells of {DENSE_SAMPLE_ROWS} rows ({n_forged} "
+        f"forged, all rejected); step_async under sync debug mode "
+        f"\"error\" == step_seq_signed_dense; card {card}")
+    out.update({"dense_cells": n_cells, "dense_launches": launches_a,
+                "dense_build_s": t_build, "dense_step_ms": ms_a,
+                "dense_prologue_ms": pro_a, "dense_kernel_ms": ker_a,
+                "dense_bound_ms": bound_a, "dense_votes_per_s": rate_a,
+                "dense_peak_bytes": peak_a,
+                "dense_plan_peak_bytes": plan_a.peak_bytes,
+                "dense_sample_cells": n_s,
+                "dense_sample_mismatches": mism_a,
+                "dense_sample_max_abs_err": err_a})
+    del asy, seq2
+
+    # -- (c) the sharded dense step on NCCL: one rank, (a)'s inputs --------
+    n_cards = torch.cuda.device_count()
+    torch.cuda.set_device(0)
+    tmp = tempfile.mkdtemp(prefix="agnes-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        # the communicator is set up at its first collective: do that
+        # outside the timed step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device=dev),
+                        group=mesh.get_group("val"))
+        torch.cuda.synchronize()
+        t_comm = time.perf_counter() - t0
+        dm = DeviceDriver(I, Vn, advance_height=True, mesh=mesh, device=dev)
+        ms_c, _, ker_c, launches_c, _, _ = step_timed(
+            lambda: dm.step_seq_signed_dense([dm.empty_phase()] + phases,
+                                             dense))
+        dm.collect()
+        census = {k[0]: dict(fn.last_census)
+                  for k, fn in dm._sharded.items()}
+        state, tally = dm.state_copies()
+        same_c = (_same_leaves([x.cpu() for x in list(state) + list(tally)],
+                               a_leaves)
+                  and dm.rejected_signature_device
+                  == da.rejected_signature_device
+                  and np.array_equal(dm.stats.decision_value,
+                                     da.stats.decision_value))
+        seq_census = census.get("make_sharded_step_seq_signed", {})
+        if not (same_c and launches_c == 1
+                and seq_census.get("val") == 2 * 3 + 1
+                and not any(seq_census.get(k) for k in ("data", "other"))):
+            raise AssertionError(f"NCCL one-rank mesh: == (a) {same_c}, "
+                                 f"launches {launches_c}, census {census}")
+        log(f"[mesh] NCCL world of 1 rank, 1 x 1 mesh, I={I} V={Vn} "
+            f"(communicator set up in {t_comm * 1e3:.1f} ms): step "
+            f"{ms_c:.3f} ms (kernel {ker_c:.3f} ms, {launches_c} launch); "
+            f"gathered state, tally, decisions and rejects == (a); "
+            f"collectives of the dense dispatch {census}; cards on this "
+            f"machine: {n_cards}; card {card}")
+        del dm, state, tally
+        del phases, dense, seq, da
+        torch.cuda.empty_cache()
+
+        # -- (d) phase 8's heights served by a VoteService on the mesh ----
+        out.update(_dense_serve(mesh, seeds, pubkeys, serve_sigs, serve_ref,
+                                classes, hbm, card))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update({"mesh_nccl_ranks": 1, "mesh_step_ms": ms_c,
+                "mesh_comm_setup_s": t_comm,
+                "mesh_launches": launches_c, "mesh_census": census,
+                "cards": n_cards})
+    if n_cards >= 2:
+        two = _spawn_mesh(2, classes, sigs, lane_ref)
+        if not (two["same"] and two["launches_rank0"] == 1):
+            raise AssertionError(f"the 1 x 2 NCCL mesh failed: {two}")
+        log(f"[mesh] NCCL world of 2 spawned ranks, 1 x 2 (val) mesh at "
+            f"I={I} V={Vn}: gathered result == (a); rank 0 verify launches "
+            f"{two['launches_rank0']}; census {two['census']}; card {card}")
+        out["mesh_two_rank"] = two
+    else:
+        log(f"[mesh] cards on this machine: {n_cards}; the 1 x 2 mesh "
+            f"over two ranks is not run; card {card}")
+    torch.cuda.empty_cache()
+
+    # -- (b) the dense height at the north-star shape ----------------------
+    In = I_NORTH
+    with RssPeak() as rss:
+        phases, dense, t_build_n, bat = _dense_build(In, seeds, pubkeys,
+                                                     sigs, classes)
+        n_north = int(dense.sig.shape[0]) * In * Vn
+        runs = {}
+        for name, budget_b in (("card", hbm), ("half", hbm // 2)):
+            plan = budget.plan_dense_verify(2, In, Vn, hbm_bytes=budget_b)
+            d = DeviceDriver(In, Vn, advance_height=True, device=dev,
+                             verify_chunk="auto", hbm_budget_bytes=budget_b)
+            sq = [d.empty_phase()] + phases
+            ms, pro, ker, launches, peak, before = step_timed(
+                lambda: d.step_seq_signed_dense(sq, dense))
+            decs = _decisions(d, bat.decode_slot)
+            runs[name] = (plan, ms, pro, ker, launches, peak, before)
+            checks = {
+                "launches == plan.n_chunks": launches == plan.n_chunks,
+                "step peak <= plan.peak_bytes": peak <= plan.peak_bytes,
+                "rejected == 2I": d.rejected_signature_device == 2 * In,
+                "decisions == phase 3n's": _same_decisions(
+                    decs, north_decisions),
+            }
+            if name == "half":
+                checks["chunked"] = plan.n_chunks > 1
+            if not all(checks.values()):
+                raise AssertionError(
+                    f"north-star dense height ({name}) failed: {checks}; "
+                    f"{plan.describe()}; peak {peak} B, launches {launches}")
+            del d, sq
+            torch.cuda.empty_cache()
+    del phases, dense, bat
+    torch.cuda.empty_cache()
+    (plan_n, ms_n, pro_n, ker_n, l_n, peak_n, bef_n) = runs["card"]
+    (plan_h, ms_h, pro_h, ker_h, l_h, peak_h, bef_h) = runs["half"]
+    bound_n, by_n = bound(V.INT32_OPS_PER_LANE * n_north,
+                          V.BYTES_PER_LANE * n_north)
+    log(f"[dense north-star] I={In} V={Vn} cells={n_north}: host build "
+        f"{t_build_n:.3f} s; at the card's memory {plan_n.describe()}: step "
+        f"{ms_n:.3f} ms (prologue {pro_n:.3f}, kernel {ker_n:.3f} ms in "
+        f"{l_n} launch(es), bound {bound_n:.3f} ms {by_n}), peak "
+        f"{peak_n / 2**30:.3f} GiB (allocated before {bef_n / 2**30:.3f}), "
+        f"verified votes/s={n_north / (t_build_n + ms_n / 1e3):.0f} (step "
+        f"only {n_north / ms_n * 1e3:.0f}); card {card}")
+    log(f"[dense north-star] under half the card ({hbm // 2} B): "
+        f"{plan_h.describe()}: {l_h} verify launches, step {ms_h:.3f} ms "
+        f"(kernel {ker_h:.3f} ms), peak {peak_h / 2**30:.3f} GiB; "
+        f"decisions == phase 3n's at both budgets; host peak RSS "
+        f"{rss.peak:.2f} GiB ({rss.start:.2f} as the build started); "
+        f"card {card}")
+    out.update({"dense_north_cells": n_north, "dense_north_build_s":
+                t_build_n, "dense_north_step_ms": ms_n,
+                "dense_north_prologue_ms": pro_n,
+                "dense_north_kernel_ms": ker_n,
+                "dense_north_launches": l_n,
+                "dense_north_chunks": plan_n.n_chunks,
+                "dense_north_bound_ms": bound_n,
+                "dense_north_peak_bytes": peak_n,
+                "dense_north_plan_peak_bytes": plan_n.peak_bytes,
+                "dense_north_half_launches": l_h,
+                "dense_north_half_chunks": plan_h.n_chunks,
+                "dense_north_half_tile": plan_h.tile,
+                "dense_north_half_step_ms": ms_h,
+                "dense_north_half_kernel_ms": ker_h,
+                "dense_north_half_peak_bytes": peak_h,
+                "dense_north_half_plan_peak_bytes": plan_h.peak_bytes,
+                "dense_north_rss_gib": rss.peak,
+                "dense_north_votes_per_s":
+                    n_north / (t_build_n + ms_n / 1e3)})
+    launches = (launches_a + launches_c + l_n + l_h
+                + out["dense_serve_launches"])
+    wall = time.perf_counter() - t_phase
+    log(f"[dense] phase 12 {wall:.1f} s; verify launches on its paths "
+        f"{launches} ((a) {launches_a}, (c) {launches_c}, (b) {l_n} + "
+        f"{l_h}, (d) {out['dense_serve_launches']} served + "
+        f"{out['dense_serve_warm_launches']} in warmup); card {card}")
+    return {"launches_dense_phase": launches, "dense": out}
+
+
+def _dense_serve(mesh, seeds, pubkeys, sigs, ref, classes, hbm,
+                 card) -> dict:
+    """Phase 12(d): phase 8's three heights served by a VoteService whose
+    driver sits on `mesh`, held against phase 8's served driver `ref`."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.serve import ShapeLadder, VoteService
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.flightrec import FlightRecorder
+    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
+
+    dev = torch.device(DEVICE)
+    I, Vn, H = I_SIGNED, V_SIGNED, SERVE_HEIGHTS
+    wire = [b"".join(pack_wire_votes(*fx.full_mesh_cols(
+        I, Vn, seeds, h, typ, VALUE, sigs=sigs[h, typ])) for typ in classes)
+        for h in range(H)]
+    box = {"h": 0}
+    drv = DeviceDriver(I, Vn, advance_height=True, defer_collect=True,
+                       audit=True, mesh=mesh, device=dev,
+                       hbm_budget_bytes=hbm)
+    flight = FlightRecorder()
+    svc = VoteService(drv, VoteBatcher(I, Vn, n_slots=4, device=dev),
+                      pubkeys, target_votes=2 * I * Vn, max_delay_s=0.0,
+                      window_predictor=lambda: (
+                          np.zeros(I, np.int64),
+                          np.full(I, box["h"], np.int64)),
+                      flightrec=flight)
+    plan = budget.plan_dense_verify(2, I, Vn, hbm_bytes=hbm)
+    if not (svc.pipeline.dense and svc.ladder == ShapeLadder.plan_dense(
+            I, Vn, local_shape=(I, Vn), hbm_bytes=hbm)):
+        raise AssertionError("the mesh service did not take the dense "
+                             "ladder and mode")
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    warmed = svc.pipeline.warmup(n_phases=(2, 3))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    warm_launches = V.LAUNCHES
+    steps = []
+    dispatch = drv.step_async
+
+    def timed_dispatch(*a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = dispatch(*a, **k)
+        ev[1].record()
+        steps.append(ev)
+        return res
+
+    drv.step_async = timed_dispatch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for h in range(H):
+            box["h"] = h
+            res = svc.submit(wire[h])
+            if res.accepted != 2 * I * Vn:
+                raise AssertionError(f"height {h} not admitted whole: {res}")
+            svc.pump()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rep = svc.drain()
+    wall = time.perf_counter() - t0
+    serve_launches = V.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    del drv.step_async
+    state, tally = drv.state_copies()
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    checks = {
+        "state and tally == phase 8's served driver, leaf for leaf":
+            _same_leaves(list(state) + list(tally), ref["leaves"]),
+        "decisions == phase 8's": all(
+            np.array_equal(getattr(drv.stats, f), ref["stats"][f])
+            for f in ("decided", "decision_value", "decision_round")),
+        "rejected == phase 8's":
+            rep["rejected_signature_device"] == ref["rejected"],
+        "one verify launch a height": serve_launches == H
+        and rep["dispatched_batches"] == H,
+        "warmup: one dense shape a phase count": warm_launches == warmed == 2
+        and svc.pipeline.warmed_keys == {("dense_signed", 2),
+                                         ("dense_signed", 3)},
+        "no retrace": drv.sentinel.metrics.counters.get(
+            RETRACE_UNEXPECTED, 0) == 0,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"dense serve failed: {checks}; launches "
+                             f"{serve_launches}, warm {warm_launches}")
+    n_votes = H * 2 * I * Vn
+    log(f"[dense serve] VoteService on the NCCL 1 x 1 mesh, "
+        f"{svc.ladder.describe()}, dense mode; warmup {warmed} shapes "
+        f"({warm_launches} verify launches) {t_warm:.3f} s; {H} heights, "
+        f"{n_votes} votes: wall {wall:.3f} s, served votes/s="
+        f"{n_votes / wall:.0f}; step ms (CUDA events) "
+        + ", ".join(f"{x:.1f}" for x in step_ms)
+        + f"; verify launches {serve_launches}; device peak "
+        f"{peak / 2**30:.3f} GiB (allocated before {before / 2**30:.3f}) "
+        f"against the dense plan's {plan.peak_bytes / 2**30:.3f} GiB "
+        f"({plan.describe()}); state, tally and decisions == phase 8's "
+        f"served lane stream; no sync point in the pump loop; card {card}")
+    return {"dense_serve_votes_per_s": n_votes / wall,
+            "dense_serve_launches": serve_launches,
+            "dense_serve_warm_launches": warm_launches,
+            "dense_serve_step_ms": step_ms,
+            "dense_serve_peak_bytes": peak,
+            "dense_serve_plan_peak_bytes": plan.peak_bytes}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3278,6 +3833,12 @@ def main(argv=None) -> int:
         f"{n_lanes / ms * 1e3:.0f}; prologue {prologue_ms:.3f} ms, rest of "
         f"the warm step {t_warm * 1e3 - prologue_ms - ms:.3f} ms")
     phase3_rate = n_lanes / wall
+    # phase 12 holds its dense height against this one
+    lane_ref = {"leaves": [x.cpu() for x in _leaves(drv)],
+                "stats": {f: getattr(drv.stats, f).copy()
+                          for f in ("decided", "decision_value",
+                                    "decision_round")},
+                "rejected": drv.rejected_signature_device}
     rows["ed25519_verify_signed5"] = {
         "route": "cuda", "source": "agnes_tpu_torch/csrc/ed25519_verify.cu",
         "replaces": "agnes_tpu/crypto/pallas_verify.py:409",
@@ -3619,7 +4180,13 @@ def main(argv=None) -> int:
     # -- phase 11: native admission and the threaded host ----------------
     rows["ed25519_verify_signed5"].update(native_serve_phase(
         seeds, pubkeys, s_sigs, serve_ref))
-    del s_sigs, serve_ref
+    torch.cuda.empty_cache()
+
+    # -- phase 12: the dense signed step and the mesh --------------------
+    rows["ed25519_verify_signed5"].update(dense_mesh_phase(
+        seeds, pubkeys, sigs, lane_ref, north_decisions, s_sigs, serve_ref,
+        bound))
+    del s_sigs, serve_ref, lane_ref
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -8,7 +8,8 @@ and `_resolve_lane_chunk` for None, 0, negative and positive row counts
 and "auto" at an explicit budget.  On the port alone (the twin's signed
 step compiles a fused verify): a signed `step_async` + `collect` equals
 `step_seq_signed`, "auto" under a forced small budget (4 chunks) equals
-the unchunked run, "auto" on the CPU without a budget raises, and
+the unchunked run, "auto" on the CPU without a budget raises, a dense
+`step_async` + `collect` equals `step_seq_signed_dense`, and
 `state_copies` are independent of the live state.
 """
 
@@ -17,7 +18,6 @@ import functools
 import numpy as np
 import pytest
 
-from agnes_tpu.device import step as js
 from agnes_tpu.harness.device_driver import DeviceDriver as JDriver
 from agnes_tpu.utils import budget as jbudget
 from agnes_tpu_torch import convert
@@ -116,16 +116,6 @@ def test_step_async_unsigned_matches_jax():
     _same_driver(t, j)
     assert t.stats.decisions_total == 2 * I
     assert t.block_until_ready() is t
-
-
-def test_step_async_refuses_the_dense_layout():
-    d = DeviceDriver(I, V, device="cpu")
-    dense = js.DenseSignedPhases(pub=np.zeros((V, 32), np.int32),
-                                 sig=np.zeros((1, I, V, 64), np.int32),
-                                 blocks=np.zeros((1, I, V, 1, 32),
-                                                 np.uint32))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        d.step_async([d.empty_phase(), d.empty_phase()], dense)
 
 
 @pytest.mark.parametrize("knob", [None, 0, -3, 1, 2, 3, 5, 100])
@@ -239,6 +229,30 @@ def test_deferred_signed_step_settles_at_collect(signed, reference):
     assert not d.stats.decided.any() and d.stats.steps == 3
     assert d.all_decided()               # collects
     _same_port(d, ref)
+
+
+def test_step_async_dense_equals_step_seq_signed_dense():
+    seeds = fx.deterministic_seeds(V)
+    bat = VoteBatcher(I, V, n_slots=4, device="cpu")
+    for typ in (0, 1):
+        bat.add_arrays(*fx.full_mesh_cols(I, V, seeds, 0, typ, VALUE,
+                                          forge_validator=FORGED))
+    phases, dense = bat.build_phases_device_dense(fx.validator_pubkeys(seeds))
+    phases = [p for p, _ in phases]
+    ref = DeviceDriver(I, V, advance_height=True, device="cpu")
+    ref_msgs = ref.step_seq_signed_dense([ref.empty_phase()] + phases, dense)
+    assert ref.all_decided() and ref.rejected_signature_device == 2 * I
+
+    d = DeviceDriver(I, V, advance_height=True, device="cpu")
+    msgs = d.step_async([d.empty_phase()] + phases, dense)
+    # nothing is read back before collect; the rejects stay [I] on the card
+    assert d.stats.votes_ingested == 0 and not d.stats.decided.any()
+    assert d.last_step_rejects.tolist() == [2] * I
+    d.collect()
+    _same_port(d, ref)
+    for a, b in zip(msgs, ref_msgs):
+        assert a.equal(b)
+    assert d.stats.votes_ingested == 2 * I * (V - 1)
 
 
 def test_state_copies_are_independent():

@@ -10,8 +10,9 @@ config 1 under --small, a tapped network and an executor snapshot, and
 one unsigned tick of the C++ ingest loop with its checkpoint, the
 library built from the port's own `core/native/` sources only, and the
 native admission queue and its shards, the runtime lock checker and an
-unsigned height served by the threaded host over native admission), and
-never loads `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
+unsigned height served by the threaded host over native admission, and
+the mesh and sharding layer `agnes_tpu_torch.parallel`), and never loads
+`jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
 
@@ -31,6 +32,8 @@ import torch
 
 import agnes_tpu_torch
 import agnes_tpu_torch.convert
+import agnes_tpu_torch.parallel
+from agnes_tpu_torch.parallel import make_mesh, make_sharded_step_seq_signed
 from agnes_tpu_torch.bridge.evidence import collect_device_evidence
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
 from agnes_tpu_torch.core.executor import WireTimeout, epoch_boundary_at
