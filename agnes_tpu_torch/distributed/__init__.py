@@ -1,0 +1,50 @@
+"""The static pod: one signed deployment served by several processes over
+`torch.distributed` (twin of `agnes_tpu.distributed`, without its elastic
+layer, ROADMAP §1 item 6b).
+
+  topology.py   sharding math, the decision-frame codec, liveness
+  pod.py        initialize_pod; lockstep agree / barrier and the
+                byte-frame all_gather over a gloo group of every rank
+  driver.py     DistributedDriver: one host's dense step on its (data,
+                val) sub-mesh, its read-outs gathered over the host
+  shard.py      HostShard: a process's serve front end (screen, warmup
+                barriers, decision gather, drain)
+  smoke.py      the spawnable worker and `spawn_pod` (tests, the chip
+                smoke): `python -m agnes_tpu_torch.distributed.smoke`
+
+A host is a block of consecutive ranks (`per_host`, one process a
+device); across hosts only the plan digests, the warmup barriers and the
+decision frames pass.
+"""
+
+from agnes_tpu_torch.distributed.driver import DistributedDriver  # noqa: F401
+from agnes_tpu_torch.distributed.pod import (  # noqa: F401
+    PodCoordinator,
+    PodDivergenceError,
+    initialize_pod,
+    shutdown_pod,
+)
+from agnes_tpu_torch.distributed.shard import HostShard  # noqa: F401
+from agnes_tpu_torch.distributed.topology import (  # noqa: F401
+    DeadHostError,
+    HostPlan,
+    PodConfigError,
+    PodDecision,
+    StragglerMonitor,
+    frame_capacity_bytes,
+    pack_decision_frame,
+    rebase_wire_instances,
+    unpack_decision_frame,
+    unpack_decision_frames,
+)
+from agnes_tpu_torch.parallel.mesh import make_pod_mesh  # noqa: F401
+
+
+def __getattr__(name):
+    # the worker module stays unimported until asked for, so that
+    # `python -m agnes_tpu_torch.distributed.smoke` runs it fresh
+    if name == "spawn_pod":
+        from agnes_tpu_torch.distributed.smoke import spawn_pod
+
+        return spawn_pod
+    raise AttributeError(name)

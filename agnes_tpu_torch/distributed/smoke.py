@@ -1,0 +1,692 @@
+"""The spawnable pod worker and the spawner (twin of
+`agnes_tpu.distributed.smoke`, without its elastic mode).
+
+    python -m agnes_tpu_torch.distributed.smoke --mode pod --pid 0 \\
+        --n-processes 2 --init-method file:///tmp/pod/rendezvous \\
+        --per-host 1 --n-val 1 --device cpu --out /tmp/pod/pod0.json
+
+Three modes, each writing a result JSON (and, with `--state-npz`, its
+state, tally and decision stats as an .npz) so that a parent compares
+them leaf for leaf without touching a process group:
+
+* ``pod``     one pod process: `initialize_pod` (a `file://` or
+              `tcp://localhost` rendezvous), a DistributedDriver and a
+              HostShard serving height by height, batches closed by size,
+              the warmup between barriers and armed, a decision gather
+              after each height, a heartbeat trail stamped with the host,
+              the drain.  Dumps its host's block.
+* ``single``  one host of `--n-processes` ranks serving the same
+              deployment through a plain VoteService over a
+              DistributedDriver with a coordinator attached (dense
+              serving over a mesh of several ranks).  Dumps the global
+              arrays.
+* ``offline`` the one-device offline dense path: VoteBatcher
+              `build_phases_device_dense` -> `step_seq_signed_dense`.
+              Dumps the global arrays.
+
+Each height's traffic is both vote classes of every (instance,
+validator) for value `VALUE`, signed with the fixture keys
+(`harness/fixtures.py`); `--forge F` signs validator F's votes with its
+neighbour's key in both classes.  Workers load only torch and the port.
+On "cuda" a pod worker also holds the verify kernel of its last dispatch
+against the plain version on `SAMPLE_ROWS` instance rows (outside the
+counted path).
+
+`spawn_pod` (`start_pod(...).wait()`) is the parent's side: it launches
+a world's workers (and the `single` / `offline` comparison worlds, each
+with its own rendezvous), bounds them all by one wall-clock deadline
+and returns every worker's record.  The deadline is the workers' only
+bound: on its breach, or as soon as any worker fails (its peers would
+wait in a collective until then), every worker is SIGKILLed.  A worker
+dies with its parent (PR_SET_PDEATHSIG), so a pod never outlives the
+process that spawned it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+PV, PC = 0, 1                   # VoteType.{PREVOTE, PRECOMMIT}
+#: the value every vote carries
+VALUE = 7
+#: instance rows of a pod worker's last dispatch held against plain
+SAMPLE_ROWS = 16
+#: a heartbeat trail's interval
+HB_INTERVAL_S = 1.0
+#: the planner's budget on the CPU, which has no device memory to read
+CPU_HBM_BYTES = 1 << 34
+
+
+# -- traffic and state ---------------------------------------------------------
+
+def signatures(seeds, heights: int, value: int,
+               forge: Optional[int]) -> dict:
+    """{(height, class): [V, 64] signatures} of heights 0..`heights`."""
+    from agnes_tpu_torch.harness import fixtures as fx
+
+    return {(h, typ): fx.sign_class(seeds, h, typ, value,
+                                    forge_validator=forge)
+            for h in range(heights + 1) for typ in (PV, PC)}
+
+
+def wire_height(I: int, V: int, seeds, h: int, value: int,
+                sigs: dict) -> bytes:
+    """Both vote classes of one height, global instance ids."""
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.harness.fixtures import full_mesh_cols
+
+    return b"".join(
+        pack_wire_votes(*full_mesh_cols(I, V, seeds, h, typ, value,
+                                        sigs=sigs[h, typ]))
+        for typ in (PV, PC))
+
+
+def state_arrays(driver) -> dict:
+    """{name: numpy}: state, tally and decision stats of a driver (on a
+    pod host's mesh, the host's block, gathered over its ranks)."""
+    state, tally = driver.state_copies()
+    out = {}
+    for name, leaf in zip(type(state)._fields, state):
+        out[f"state_{name}"] = leaf.cpu().numpy()
+    for name, leaf in zip(type(tally)._fields, tally):
+        out[f"tally_{name}"] = leaf.cpu().numpy()
+    out["decided"] = driver.stats.decided
+    out["decision_value"] = driver.stats.decision_value
+    out["decision_round"] = driver.stats.decision_round
+    return out
+
+
+def plain_sample(dense, rows: int, forged: Optional[int], rng) -> dict:
+    """The verify kernel against its plain version on every cell of
+    `rows` sampled instance rows of a dense batch (both classes, so the
+    forged validator's cells too), and whether the verdicts are exactly
+    "every forged cell rejected, every other accepted"."""
+    import torch
+
+    from agnes_tpu_torch.crypto import verify as VF
+
+    Ps, I, Vn = dense.sig.shape[:3]
+    rows = min(rows, I)
+    pick = torch.from_numpy(rng.choice(I, rows, replace=False)) \
+        .to(dense.sig.device)
+    sig = dense.sig[:, pick].reshape(-1, 64)
+    blocks = dense.blocks[:, pick].reshape((-1,) + dense.blocks.shape[3:])
+    pub = dense.pub[None, None].expand(Ps, rows, Vn, 32).reshape(-1, 32)
+    args, ok_s = VF.prologue(pub, sig, blocks)
+    got = VF.verify_signed5(*args)
+    plain = VF.verify_plain(*args)
+    diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
+    ok = ((got > 0) & ok_s).reshape(Ps, rows, Vn).cpu()
+    is_forged = torch.zeros((Ps, rows, Vn), dtype=torch.bool)
+    if forged is not None:
+        is_forged[:, :, forged] = True
+    return {"cells": int(sig.shape[0]),
+            "mismatches": int((diff != 0).sum()),
+            "max_abs_err": int(diff.max()) if diff.numel() else 0,
+            "forged_cells": int(is_forged.sum()),
+            "verdicts_right": (not bool(ok[is_forged].any())
+                               and bool(ok[~is_forged].all()))}
+
+
+class _TickClock:
+    """Per-dispatch host and device times of a driver, the verify
+    kernel's device time a launch, and the walls of a coordinator's
+    agree() and a pipeline's stage (densify): the wrappers record, then
+    call through.  Device times are CUDA events (None on the CPU)."""
+
+    def __init__(self, driver, pipeline, coordinator, cuda: bool):
+        import torch
+
+        from agnes_tpu_torch.crypto import verify as VF
+
+        self.launch_ms: List[float] = []
+        self.densify_ms: List[float] = []
+        self.agree_ms: List[float] = []
+        self.steps: list = []
+        self.kernels: list = []
+        self.last_lanes = None
+        self.cells: List[int] = []
+        step, stage, agree = (driver.step_async, pipeline.stage,
+                              coordinator.agree)
+
+        def events(fn, into):
+            def call(*a, **k):
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = fn(*a, **k)
+                ev[1].record()
+                into.append(ev)
+                return out
+            return call
+
+        if cuda:
+            step = events(step, self.steps)
+            VF.verify_signed5 = events(VF.verify_signed5, self.kernels)
+
+        def step_async(phases, lanes=None, *a, **k):
+            t0 = time.perf_counter()
+            out = step(phases, lanes, *a, **k)
+            self.launch_ms.append((time.perf_counter() - t0) * 1e3)
+            if lanes is not None:
+                self.last_lanes = lanes
+                self.cells.append(int(lanes.sig.shape[0]) * driver.I
+                                  * driver.V)
+            return out
+
+        def timed(fn, into, keep=lambda out: True):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if keep(out):
+                    into.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        driver.step_async = step_async
+        # a stage that staged nothing (an empty tick) is no densify
+        pipeline.stage = timed(stage, self.densify_ms, keep=bool)
+        coordinator.agree = timed(agree, self.agree_ms)
+
+    @staticmethod
+    def ms(events) -> List[float]:
+        return [a.elapsed_time(b) for a, b in events]
+
+
+def _rss_gib() -> float:
+    """This process's resident set now (`VmRSS`).  Not `ru_maxrss`: a
+    worker spawned by vfork + exec carries the spawning process's peak
+    in it."""
+    with open("/proc/self/status") as f:
+        return next(int(ln.split()[1]) for ln in f
+                    if ln.startswith("VmRSS:")) / 2**20
+
+
+def _setup(args):
+    """(torch, device, planner budget) of a worker."""
+    import torch
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)     # workers share the host's cores
+    return torch, torch.device(args.device)
+
+
+# -- the modes -----------------------------------------------------------------
+
+def run_pod_worker(args) -> dict:
+    """One pod process's serve loop (module docstring)."""
+    torch, dev = _setup(args)
+    from agnes_tpu_torch.distributed.pod import initialize_pod, shutdown_pod
+
+    initialize_pod(args.init_method, args.n_processes, args.pid,
+                   device_type=args.device)
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.distributed.driver import DistributedDriver
+    from agnes_tpu_torch.distributed.shard import HostShard
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.serve import ShapeLadder
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.flightrec import FlightRecorder, Heartbeat
+    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
+
+    cuda = dev.type == "cuda"
+    try:
+        I, V, H = args.instances, args.validators, args.heights
+        hbm = budget.device_hbm_bytes(dev) if cuda else CPU_HBM_BYTES
+        d = DistributedDriver(I, V, advance_height=True,
+                              defer_collect=True, audit=True,
+                              n_val=args.n_val, per_host=args.per_host,
+                              hbm_budget_bytes=hbm, device=dev)
+        flightrec = FlightRecorder()
+        hb = None
+        if args.heartbeat:
+            hb = Heartbeat(args.heartbeat, interval_s=HB_INTERVAL_S,
+                           recorder=flightrec, host_id=d.host).start()
+        n_local = d.I * V
+        box = {"h": 0}
+        seeds = fx.deterministic_seeds(V)
+        shard = HostShard(
+            d, VoteBatcher(d.I, V, n_slots=4, device=dev),
+            fx.validator_pubkeys(seeds),
+            capacity=4 * 2 * n_local, target_votes=2 * n_local,
+            max_delay_s=1e9,                 # batches close by size
+            ladder=ShapeLadder.plan_dense(
+                I, V, local_shape=d._local_shape(), n_hosts=d.n_hosts,
+                min_rung=1 << (2 * n_local - 1).bit_length(),
+                hbm_bytes=hbm),
+            window_predictor=lambda: (np.zeros(d.I, np.int64),
+                                      np.full(d.I, box["h"], np.int64)),
+            flightrec=flightrec, native_admission=args.native_admission)
+        if hb is not None:
+            hb.sources.append(lambda: shard.metrics.snapshot(
+                window=True, window_key="heartbeat"))
+        sigs = signatures(seeds, H, VALUE, args.forge)
+        wire = [wire_height(I, V, seeds, h, VALUE, sigs)
+                for h in range(H + 1)]
+        clock = _TickClock(d, shard.pipeline, shard.coordinator, cuda)
+        # the one shape height-paced traffic dispatches: P = 3 (entry +
+        # both classes); the sentinel then arms the no-retrace invariant
+        VF.LAUNCHES = 0
+        warmed = shard.warmup(n_phases=(3,), arm=True)
+        warm_launches = VF.LAUNCHES
+        clock.kernels.clear()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+        gather_ms, rejected, launches = [], [], []
+        VF.LAUNCHES = 0
+        t_all = time.perf_counter()
+        t0 = t_all
+        for h in range(H + 1):
+            if h == 1:
+                t0 = time.perf_counter()     # height 0 warms the path
+            box["h"] = h
+            res = shard.submit(wire[h])
+            if res.accepted != 2 * n_local:
+                raise RuntimeError(
+                    f"process {args.pid} admitted {res.accepted} of the "
+                    f"{2 * n_local} local records at height {h}: {res}")
+            _progress(f"height {h}: admitted")
+            want = 2 * n_local * (h + 1)
+            before = VF.LAUNCHES
+            while shard.pipeline.dispatched_votes < want:
+                shard.pump()
+            _progress(f"height {h}: dispatched")
+            launches.append(VF.LAUNCHES - before)
+            g0 = time.perf_counter()
+            new = shard.poll_pod_decisions()
+            gather_ms.append((time.perf_counter() - g0) * 1e3)
+            if h == 0 and len(new) != I:
+                raise RuntimeError(
+                    f"process {args.pid}: the height-0 gather surfaced "
+                    f"{len(new)} decisions, expected {I}")
+            rejected.append(d.rejected_signature_device - sum(rejected))
+        dt = time.perf_counter() - t0
+        wall = time.perf_counter() - t_all
+        rep = shard.drain()
+        rss = _rss_gib()                     # the serve's buffers still held
+        main_launches = VF.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        step_ms = clock.ms(clock.steps) if cuda else None
+        kernel_ms = clock.ms(clock.kernels) if cuda else None
+        if hb is not None:
+            hb.stop()
+        sample = None
+        if cuda:
+            sample = plain_sample(clock.last_lanes, SAMPLE_ROWS,
+                                  args.forge,
+                                  np.random.RandomState(1000 + args.pid))
+        if args.state_npz:
+            np.savez(args.state_npz, **state_arrays(d))
+        plan = budget.plan_dense_verify(2, *d._local_shape(),
+                                        hbm_bytes=hbm)
+        pod = rep["pod"]
+        return {
+            "mode": "pod", "process": args.pid, "host": d.host,
+            "n_hosts": d.n_hosts, "per_host": d.per_host,
+            "n_val": args.n_val, "device": str(dev),
+            "instances": I, "validators": V, "heights": H,
+            "local_instances": d.I,
+            "votes_per_sec": 2 * I * V * H / dt if H else None,
+            "wall_s": wall,
+            "decisions_total": d.stats.decisions_total,
+            "pod_decisions": len(shard.pod_decisions),
+            "pod_decision_rows": sorted(
+                [pd.instance, pd.host, pd.height, pd.round,
+                 -1 if pd.value_id is None else pd.value_id]
+                for pd in shard.pod_decisions),
+            "foreign_rejects": shard.foreign_rejects,
+            "rejected_signature_device": d.rejected_signature_device,
+            "rejected_by_height": rejected,
+            "launches": main_launches,
+            "launches_by_height": launches,
+            "cells_by_dispatch": clock.cells,
+            "warm_launches": warm_launches,
+            "retrace_unexpected": int(d.sentinel.metrics.counters.get(
+                RETRACE_UNEXPECTED, 0)),
+            "warmed_shapes": warmed,
+            "offladder_builds": rep["offladder_builds"],
+            "host_fallback_builds": rep["host_fallback_builds"],
+            "dispatched_batches": rep["dispatched_batches"],
+            "native_admission": bool(args.native_admission),
+            "native_phase_builds": rep["native_phase_builds"],
+            "agrees": pod["agrees"], "barriers": pod["barriers"],
+            "gather_failed": pod["gather_failed"],
+            "densify_ms": clock.densify_ms, "launch_ms": clock.launch_ms,
+            "step_ms": step_ms, "kernel_ms": kernel_ms,
+            "agree_ms": clock.agree_ms, "gather_ms": gather_ms,
+            "peak_bytes": peak, "plan_peak_bytes": plan.peak_bytes,
+            "rss_gib": rss,
+            "sample": sample,
+            "heartbeat_path": args.heartbeat or None,
+        }
+    finally:
+        shutdown_pod()
+
+
+def _progress(msg: str) -> None:
+    """A line in the worker's log: where a worker killed at the
+    deadline stopped."""
+    print(msg, flush=True)
+
+
+def _serve_heights(svc, box, wire, n: int) -> None:
+    """Submit and pump each height until its votes are dispatched."""
+    for h, w in enumerate(wire):
+        box["h"] = h
+        res = svc.submit(w)
+        if res.accepted != 2 * n:
+            raise RuntimeError(f"height {h}: admitted {res.accepted} of "
+                               f"{2 * n}")
+        while svc.pipeline.dispatched_votes < 2 * n * (h + 1):
+            svc.pump()
+        _progress(f"height {h}: dispatched")
+
+
+def run_single_worker(args) -> dict:
+    """One rank of a single host of `--n-processes` ranks serving the
+    deployment (module docstring)."""
+    torch, dev = _setup(args)
+    from agnes_tpu_torch.distributed.pod import (
+        PodCoordinator,
+        initialize_pod,
+        shutdown_pod,
+    )
+
+    initialize_pod(args.init_method, args.n_processes, args.pid,
+                   device_type=args.device)
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.distributed.driver import DistributedDriver
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.serve import ShapeLadder, VoteService
+    from agnes_tpu_torch.utils import budget
+
+    try:
+        I, V, H = args.instances, args.validators, args.heights
+        hbm = (budget.device_hbm_bytes(dev) if dev.type == "cuda"
+               else CPU_HBM_BYTES)
+        d = DistributedDriver(I, V, advance_height=True,
+                              defer_collect=True, audit=True,
+                              n_val=args.n_val, per_host=args.n_processes,
+                              coordinator=PodCoordinator(),
+                              hbm_budget_bytes=hbm, device=dev)
+        n = I * V
+        box = {"h": 0}
+        seeds = fx.deterministic_seeds(V)
+        svc = VoteService(
+            d, VoteBatcher(I, V, n_slots=4, device=dev),
+            fx.validator_pubkeys(seeds), capacity=4 * 2 * n,
+            target_votes=2 * n, max_delay_s=1e9,
+            ladder=ShapeLadder.plan_dense(
+                I, V, local_shape=d._local_shape(),
+                min_rung=1 << (2 * n - 1).bit_length(), hbm_bytes=hbm),
+            window_predictor=lambda: (np.zeros(I, np.int64),
+                                      np.full(I, box["h"], np.int64)))
+        svc.pipeline.warmup(n_phases=(3,), arm=True)
+        sigs = signatures(seeds, H, VALUE, args.forge)
+        _serve_heights(svc, box, [wire_height(I, V, seeds, h, VALUE, sigs)
+                                  for h in range(H + 1)], n)
+        rep = svc.drain()
+        if args.state_npz:
+            np.savez(args.state_npz, **state_arrays(d))
+        return {"mode": "single", "process": args.pid,
+                "decisions_total": d.stats.decisions_total,
+                "rejected_signature_device": d.rejected_signature_device,
+                "offladder_builds": rep["offladder_builds"],
+                "agrees": d.coordinator.agrees}
+    finally:
+        shutdown_pod()
+
+
+def run_offline_worker(args) -> dict:
+    """The one-device offline dense path (module docstring)."""
+    torch, dev = _setup(args)
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+
+    I, V, H = args.instances, args.validators, args.heights
+    seeds = fx.deterministic_seeds(V)
+    pubkeys = fx.validator_pubkeys(seeds)
+    sigs = signatures(seeds, H, VALUE, args.forge)
+    d = DeviceDriver(I, V, advance_height=True, defer_collect=True,
+                     device=dev)
+    bat = VoteBatcher(I, V, n_slots=4, device=dev)
+    for h in range(H + 1):
+        bat.sync_device(np.zeros(I, np.int64), np.full(I, h, np.int64))
+        for typ in (PV, PC):
+            bat.add_arrays(*fx.full_mesh_cols(I, V, seeds, h, typ,
+                                              VALUE, sigs=sigs[h, typ]))
+        phases, dense = bat.build_phases_device_dense(pubkeys)
+        if dense is None:
+            raise RuntimeError("the offline dense build left the device "
+                               "path")
+        d.step_seq_signed_dense([d.empty_phase()]
+                                + [p for p, _ in phases], dense)
+    d.block_until_ready()
+    if args.state_npz:
+        np.savez(args.state_npz, **state_arrays(d))
+    return {"mode": "offline", "decisions_total": d.stats.decisions_total,
+            "rejected_signature_device": d.rejected_signature_device}
+
+
+def _die_with_parent() -> None:
+    """SIGKILL this worker when its parent dies (PR_SET_PDEATHSIG), so
+    a pod never outlives the process that spawned it.  Set after exec,
+    in the worker's own interpreter; a parent that died before that has
+    handed the worker to init, and the worker exits."""
+    import ctypes
+    import signal
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(1, signal.SIGKILL, 0, 0, 0):   # 1 = PR_SET_PDEATHSIG
+        err = ctypes.get_errno()
+        raise OSError(err, f"prctl(PR_SET_PDEATHSIG): {os.strerror(err)}")
+    if os.getppid() == 1:
+        sys.exit("the spawning process is gone")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m agnes_tpu_torch.distributed.smoke")
+    ap.add_argument("--mode", choices=("pod", "single", "offline"),
+                    required=True)
+    ap.add_argument("--pid", type=int, default=0, help="this rank")
+    ap.add_argument("--n-processes", type=int, default=2,
+                    help="the world's ranks")
+    ap.add_argument("--init-method", default=None,
+                    help="file://<path> or tcp://localhost:<port>")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--per-host", type=int, default=1,
+                    help="ranks a host (pod mode)")
+    ap.add_argument("--n-val", type=int, default=1,
+                    help="ranks a host's val axis")
+    ap.add_argument("--instances", type=int, default=8)
+    ap.add_argument("--validators", type=int, default=8)
+    ap.add_argument("--heights", type=int, default=2,
+                    help="heights after height 0")
+    ap.add_argument("--forge", type=int, default=None,
+                    help="validator whose votes are forged in both "
+                         "classes")
+    ap.add_argument("--native-admission", action="store_true")
+    ap.add_argument("--out", required=True, help="result JSON path")
+    ap.add_argument("--state-npz", default=None)
+    ap.add_argument("--heartbeat", default=None)
+    args = ap.parse_args(argv)
+    _die_with_parent()
+    if args.mode != "offline" and not args.init_method:
+        ap.error(f"--mode {args.mode} needs --init-method")
+    run = {"pod": run_pod_worker, "single": run_single_worker,
+           "offline": run_offline_worker}[args.mode]
+    try:
+        rec = run(args)
+    except BaseException as e:
+        # the parent reads a record even when a worker dies
+        _result(args.out, {"mode": args.mode, "process": args.pid,
+                           "error": f"{type(e).__name__}: {e}"})
+        raise
+    _result(args.out, rec)
+    return 0
+
+
+def _result(path: str, rec: dict) -> None:
+    with open(path, "w") as f:
+        json.dump(rec, f, sort_keys=True)
+        f.write("\n")
+
+
+# -- the parent's side ---------------------------------------------------------
+
+def _repo_root() -> str:
+    import agnes_tpu_torch
+
+    return os.path.dirname(os.path.dirname(
+        os.path.abspath(agnes_tpu_torch.__file__)))
+
+
+class PodRun:
+    """Workers started by `start_pod`; `wait()` collects them."""
+
+    def __init__(self, jobs, timeout_s: float):
+        self.jobs = jobs
+        self.deadline = time.monotonic() + timeout_s
+
+    def wait(self) -> dict:
+        """Poll every worker until all have exited, one has failed, or
+        the deadline has passed; SIGKILL the rest in the last two cases.
+        Returns {"pod": [record a rank], "single": [record a rank]?,
+        "offline": record?, "paths": {tag: {...}}, "killed": bool (the
+        deadline passed), "failed_first": tag?}.  A worker that died,
+        or was killed, has a record with an "error" key."""
+        killed, failed = False, None
+        while True:
+            rcs = [job["proc"].poll() for job in self.jobs]
+            failed = next((job["tag"] for job, rc in zip(self.jobs, rcs)
+                           if rc not in (None, 0)), None)
+            if failed is not None or None not in rcs:
+                break
+            if time.monotonic() > self.deadline:
+                killed = True
+                break
+            time.sleep(0.05)
+        for job in self.jobs:
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+        for job in self.jobs:
+            try:
+                job["proc"].wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+        out: dict = {"pod": [], "paths": {}, "killed": killed,
+                     "failed_first": failed}
+        for job in self.jobs:
+            job["log"].close()
+            rc = job["proc"].returncode
+            out["paths"][job["tag"]] = dict(job["paths"], rc=rc)
+            try:
+                with open(job["paths"]["json"]) as f:
+                    rec = json.load(f)
+            except (OSError, ValueError):
+                why = (", killed at the deadline" if killed else
+                       f", killed after {failed} failed" if failed else "")
+                rec = {"mode": job["mode"],
+                       "error": f"no result record (rc={rc}{why})"}
+            if job["mode"] == "offline":
+                out["offline"] = rec
+            else:
+                out.setdefault(job["mode"], []).append(rec)
+        return out
+
+
+def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
+              instances: int = 8, validators: int = 8, heights: int = 2,
+              forge: Optional[int] = None, device: str = "cuda",
+              out_dir: str, timeout_s: float = 1200.0,
+              heartbeat: bool = False, dump_state: bool = False,
+              native_admission: bool = False,
+              extra_modes: Optional[List[str]] = None,
+              tag: str = "pod") -> PodRun:
+    """Launch a pod of `n_processes` ranks (`per_host` a host) in
+    `device` mode, each its own interpreter, rendezvous by `file://` in
+    `out_dir`; `extra_modes` adds "single" (one host of `n_processes`
+    ranks, a world of its own) and "offline" (one process).  Returns at
+    once; `PodRun.wait()` bounds everything by `timeout_s`."""
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ)
+    root = _repo_root()
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+
+    def launch(mode: str, pid: int, world: int, name: str,
+               rendezvous: Optional[str]) -> dict:
+        paths = {"json": os.path.join(out_dir, f"{name}.json"),
+                 "log": os.path.join(out_dir, f"{name}.log"),
+                 "npz": (os.path.join(out_dir, f"{name}.npz")
+                         if dump_state else None),
+                 "heartbeat": (os.path.join(out_dir,
+                                            f"heartbeat.{name}.ndjson")
+                               if heartbeat and mode == "pod" else None)}
+        cmd = [sys.executable, "-m", "agnes_tpu_torch.distributed.smoke",
+               "--mode", mode, "--pid", str(pid),
+               "--n-processes", str(world), "--device", device,
+               "--per-host", str(per_host), "--n-val", str(n_val),
+               "--instances", str(instances),
+               "--validators", str(validators),
+               "--heights", str(heights), "--out", paths["json"]]
+        if rendezvous:
+            cmd += ["--init-method", f"file://{rendezvous}"]
+        if forge is not None:
+            cmd += ["--forge", str(forge)]
+        if paths["npz"]:
+            cmd += ["--state-npz", paths["npz"]]
+        if paths["heartbeat"]:
+            cmd += ["--heartbeat", paths["heartbeat"]]
+        if native_admission and mode == "pod":
+            cmd.append("--native-admission")
+        log = open(paths["log"], "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=log, env=env,
+                                cwd=root)
+        return {"tag": name, "mode": mode, "proc": proc, "log": log,
+                "paths": paths}
+
+    def rendezvous(name: str) -> str:
+        path = os.path.join(out_dir, f"rendezvous.{name}")
+        if os.path.exists(path):
+            os.remove(path)
+        return path
+
+    jobs = []
+    rdv = rendezvous(tag)
+    jobs += [launch("pod", k, n_processes, f"{tag}{k}", rdv)
+             for k in range(n_processes)]
+    for mode in (extra_modes or ()):
+        if mode == "single":
+            rdv = rendezvous(f"{tag}_single")
+            jobs += [launch("single", k, n_processes, f"{tag}_single{k}",
+                            rdv) for k in range(n_processes)]
+        elif mode == "offline":
+            jobs.append(launch("offline", 0, 1, f"{tag}_offline", None))
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+    return PodRun(jobs, timeout_s)
+
+
+def spawn_pod(n_processes: int = 2, **kw) -> dict:
+    """`start_pod(...)` and wait for it: every worker's record."""
+    return start_pod(n_processes, **kw).wait()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

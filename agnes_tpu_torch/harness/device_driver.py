@@ -27,8 +27,8 @@ global phases, events and lanes (parallel/sharded.py's layout table).
 The tally's all_reduces over the mesh's `val` group are the only
 collectives inside a step.  The read-outs (`collect` and the stats,
 `all_decided`, `rejected_signature_device`, `equivocators_detected`,
-`state_copies`) give the global answer on every rank, through one
-all_gather at each call, outside the step.  A phase's `height` is read
+`state_copies`, `window`) give the global answer on every rank, through
+one all_gather at each call, outside the step.  A phase's `height` is read
 at the rank's own block only, so `empty_phase` and `phase` fill that
 block from the rank's state.  The packed-lane signed layout is one
 device's, as in the twin: on a mesh use the dense layout.
@@ -655,6 +655,16 @@ class DeviceDriver:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
+
+    def window(self):
+        """(base_round, heights), [I] int64 numpy each: one read of the
+        card (it waits for the step in flight); on a mesh gathered from
+        every rank's block."""
+        leaves = [self.tally.base_round, self.state.height]
+        if self.mesh is not None:
+            leaves = self._sh.gather_tree(self.mesh, leaves,
+                                          [(self._sh.DATA,)] * 2)
+        return tuple(x.cpu().numpy().astype(np.int64) for x in leaves)
 
     def equivocators_detected(self) -> np.ndarray:
         """[I] count of flagged validators per instance."""

@@ -6,7 +6,8 @@ machines, sharded as data parallelism, no collective) and validators
 (the tally's reduction axis, whose quorum sums are `all_reduce`s over
 the mesh's `val` group).  The port runs one process per device
 (parallel/mesh.py); `make_hierarchical_mesh` adds an outer `slice` axis
-that, like `data`, carries no collective.
+that, like `data`, carries no collective; `make_pod_mesh` makes its
+slices hosts (distributed/).
 """
 
 from agnes_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -15,6 +16,7 @@ from agnes_tpu_torch.parallel.mesh import (  # noqa: F401
     VAL_AXIS,
     make_hierarchical_mesh,
     make_mesh,
+    make_pod_mesh,
 )
 from agnes_tpu_torch.parallel.sharded import (  # noqa: F401
     ShardedStep,

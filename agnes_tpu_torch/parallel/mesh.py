@@ -20,6 +20,11 @@ position r of the grid.  Every rank holds the blocks of its mesh
 coordinate (parallel/sharded.py).  Device type "cuda" (NCCL, one card a
 rank, the card picked by the caller's `torch.cuda.set_device`) unless the
 caller asks for "cpu" (gloo, the CPU differentials).
+
+A pod (distributed/) is a hierarchical mesh whose slices are hosts:
+`make_pod_mesh` lays the world out host-major, and each host's ranks
+form its (data, val) sub-mesh, over which a host's driver shards its
+own instance block.
 """
 
 from __future__ import annotations
@@ -58,3 +63,35 @@ def make_hierarchical_mesh(n_slices: int, n_data: int, n_val: int,
     over slice x data, the tally's all_reduces stay on val."""
     return _mesh((n_slices, n_data, n_val),
                  (SLICE_AXIS, DATA_AXIS, VAL_AXIS), device_type)
+
+
+def make_pod_mesh(n_val: int, per_host: int, group,
+                  device_type: str = "cuda") -> DeviceMesh:
+    """The pod's mesh over the whole world: (slice=n_hosts,
+    data=per_host // n_val, val=n_val), host-major, so host h is ranks
+    [h * per_host, (h + 1) * per_host) and its (data, val) sub-mesh is
+    `mesh["data", "val"]`.  Checked against the machines the ranks run
+    on, gathered over `group` (a process group of every rank that takes
+    CPU objects; the pod passes its gloo group, distributed/pod.py):
+    every host's ranks must share one machine (an interleaved rank order
+    would put one host's all_reduces across machines)."""
+    import socket
+
+    world = dist.get_world_size()
+    if per_host < 1 or world % per_host:
+        raise ValueError(f"{world} ranks do not split into hosts of "
+                         f"{per_host}")
+    if per_host % n_val:
+        raise ValueError(f"{per_host} ranks a host do not split into "
+                         f"val={n_val}")
+    names = [None] * world
+    dist.all_gather_object(names, socket.gethostname(), group=group)
+    for r, name in enumerate(names):
+        first = names[r - r % per_host]
+        if name != first:
+            raise ValueError(
+                f"rank order is not host-major: rank {r} runs on {name}, "
+                f"rank {r - r % per_host} of its host on {first}; number "
+                f"each machine's ranks consecutively")
+    return make_hierarchical_mesh(world // per_host, per_host // n_val,
+                                  n_val, device_type)

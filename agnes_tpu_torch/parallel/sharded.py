@@ -31,8 +31,11 @@ The one table (`_TALLY` and its neighbours below) serves both ways:
 `shard_step_args` / `place_step_state` / `shard_tree` cut a rank's block
 out of global arguments on the rank's device, and
 `gather_step_outputs` / `gather_tree` rebuild global values from every
-rank's blocks (one `all_gather` over the default group, whose ranks are
-the mesh's), for read-outs and tests.
+rank's blocks (one `all_gather` over the default group when the mesh is
+the world; over the mesh's own axis groups when it is a pod host's
+sub-mesh, where "global" is the host's block), for read-outs and tests.
+A rank finds its block by its position in the mesh, whose entries are
+world ranks, so a sub-mesh places its ranks as a mesh of its own.
 
 Only the tally's two validator reductions communicate, plus the dense
 step's rejected count: `all_reduce`s over the mesh's `val` group
@@ -198,21 +201,41 @@ def place_step_state(mesh, state, tally):
 # -- global values from every rank's blocks ------------------------------------
 
 
+def _all_blocks(mesh, flat: torch.Tensor):
+    """(ranks, buffers): every rank of `mesh` and its `flat` buffer.  A
+    mesh that is the world gathers in one `all_gather` over the default
+    group; a sub-mesh (a pod host's, distributed/driver.py) in
+    one over each of its axes' groups, innermost first, which hold only
+    its ranks, so ranks outside it take no part.  Axes of one rank
+    gather nothing.  Buffers come in row-major mesh order."""
+    world = dist.get_world_size()
+    if world == mesh.mesh.numel():
+        parts = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(parts, flat)
+        return list(range(world)), parts
+    parts = [flat]
+    for dim in reversed(range(mesh.ndim)):
+        k = mesh.shape[dim]
+        if k == 1:
+            continue
+        buf = torch.cat(parts)
+        got = [torch.empty_like(buf) for _ in range(k)]
+        dist.all_gather(got, buf, group=mesh.get_group(dim))
+        parts = [p for g in got for p in g.split(flat.numel())]
+    return mesh.mesh.reshape(-1).tolist(), parts
+
+
 def gather_tree(mesh, leaves: Sequence[torch.Tensor],
                 specs: Sequence[tuple]) -> List[torch.Tensor]:
-    """The global tensors whose blocks (per `specs`) the ranks hold in
-    `leaves`: one `all_gather` over the default group (the mesh's ranks)
-    of every leaf packed into one int32 buffer.  Replicated blocks are
-    read from the first rank that holds them.  Int32 and bool leaves."""
+    """The global tensors (of the mesh: a pod host's block on a host's
+    sub-mesh) whose blocks (per `specs`) the mesh's ranks hold in
+    `leaves`: every leaf packed into one int32 buffer and all-gathered
+    over the mesh's ranks (`_all_blocks`).  Replicated blocks are read
+    from the first rank that holds them.  Int32 and bool leaves."""
     n = _extents(mesh)
-    world = dist.get_world_size()
-    if world != mesh.mesh.numel():
-        raise ValueError(f"gather needs the mesh to be the world: mesh of "
-                         f"{mesh.mesh.numel()} ranks, world of {world}")
     flat = torch.cat([x.reshape(-1).to(I32) for x in leaves]) if leaves \
         else torch.zeros((0,), dtype=I32)
-    parts = [torch.empty_like(flat) for _ in range(world)]
-    dist.all_gather(parts, flat.contiguous())
+    ranks, parts = _all_blocks(mesh, flat.contiguous())
     out = []
     for x, spec in zip(leaves, specs):
         shape = list(x.shape)
@@ -221,7 +244,7 @@ def gather_tree(mesh, leaves: Sequence[torch.Tensor],
                 shape[dim] *= n[axis]
         out.append(torch.empty(shape, dtype=x.dtype, device=x.device))
     filled = [set() for _ in leaves]
-    for r in range(world):
+    for r, part in zip(ranks, parts):
         at = _coords_of(mesh, r)
         off = 0
         for k, (x, spec) in enumerate(zip(leaves, specs)):
@@ -230,7 +253,7 @@ def gather_tree(mesh, leaves: Sequence[torch.Tensor],
             if key not in filled[k]:
                 filled[k].add(key)
                 _take(out[k], spec, at, n).copy_(
-                    parts[r][off:off + m].reshape(x.shape).to(x.dtype))
+                    part[off:off + m].reshape(x.shape).to(x.dtype))
             off += m
     return out
 

@@ -57,12 +57,15 @@ and dispatch the dense fused signed step, whose shape (P, I, V) is the
 deployment's, so the ladder (ShapeLadder.plan_dense) only paces the
 votes a micro-batch carries and warmup launches one shape per P.  The
 native adopt branch is off in dense mode (its drain fills packed lanes).
-Dense serving runs on one card: a driver on a one-rank mesh, or
-`dense=True` over a plain driver.  A driver whose mesh has several ranks
-is refused (NotImplementedError): serving across processes needs the
-pod's routing of submitted votes to ranks (ROADMAP §1 item 6), which
-also brings the pod's padding primitives (`pad_staged_to`,
-`stage_padding`).
+Dense serving runs on one card (a driver on a one-rank mesh, or
+`dense=True` over a plain driver) or on a pod host's mesh of several
+ranks (distributed/): every rank runs its own pipeline over the same
+host-local traffic and dispatches its block.  A driver whose mesh has
+several ranks must carry a coordinator (`driver.coordinator`,
+distributed/pod.py), whose agree() runs before every dispatch; without
+one it is refused (NotImplementedError).  The elastic pod's padding
+primitives (`pad_staged_to`, `stage_padding`) wait for ROADMAP §1
+item 6b.
 """
 
 from __future__ import annotations
@@ -143,14 +146,18 @@ class ServePipeline:
         aggregated, pairing-checked and fed down the same unsigned
         path.  `dense` selects the dense dispatch mode (module
         docstring); None picks it when the driver has a mesh.  A driver
-        on a mesh of several ranks raises NotImplementedError."""
+        on a mesh of several ranks without a coordinator raises
+        NotImplementedError."""
         mesh = getattr(driver, "mesh", None)
-        if mesh is not None and mesh.mesh.numel() > 1:
+        if (mesh is not None and mesh.mesh.numel() > 1
+                and getattr(driver, "coordinator", None) is None):
             raise NotImplementedError(
                 f"serving over a mesh of {mesh.mesh.numel()} ranks needs "
-                f"the pod's routing of submitted votes to ranks (ROADMAP "
-                f"§1 item 6); serve dense on one card (a one-rank mesh, "
-                f"or dense=True)")
+                f"a coordinator on the driver, which agrees every "
+                f"dispatch across the ranks before it runs: serve "
+                f"through the pod (ROADMAP §1 item 6: distributed."
+                f"DistributedDriver under a distributed.HostShard), or "
+                f"dense on one card (a one-rank mesh, or dense=True)")
         self.dense = dense if dense is not None else mesh is not None
         self.driver = driver
         self.batcher = batcher
@@ -234,9 +241,7 @@ class ServePipeline:
             base = np.asarray(base, np.int64)
             hts = np.asarray(hts, np.int64)
         else:
-            base = self.driver.tally.base_round.cpu().numpy().astype(
-                np.int64)
-            hts = self.driver.state.height.cpu().numpy().astype(np.int64)
+            base, hts = self.driver.window()
         for i in np.nonzero(hts > self.batcher.heights)[0]:
             if int(i) not in self.first_advance_decode:
                 self.first_advance_decode[int(i)] = {
@@ -575,7 +580,7 @@ class ServePipeline:
                 if b.rejects is None:
                     self.cache.note_unverified_batch()
                     continue
-                if int(torch.as_tensor(b.rejects).sum()) == 0:
+                if int(b.rejects.sum()) == 0:
                     dig, inst, heights = b.cache_keys
                     self.cache.insert(dig, inst, heights)
                 else:

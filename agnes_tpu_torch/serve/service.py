@@ -30,8 +30,9 @@ either way; serve/threaded.py runs a service on socket-facing threads.
 Runs on the card unless built over a CPU driver and batcher.  Over a
 driver with a mesh the service plans the dense ladder
 (`ShapeLadder.plan_dense` on the rank's block) and the pipeline takes
-the dense dispatch mode, as in the twin; serving over a mesh of several
-ranks waits for the pod (ROADMAP §1 item 6) and is refused.
+the dense dispatch mode, as in the twin; over a mesh of several ranks
+the driver must carry the pod's coordinator (distributed/shard.py's
+HostShard attaches it), or the pipeline refuses it.
 """
 
 from __future__ import annotations

@@ -14,14 +14,15 @@ heartbeat file (twin of `agnes_tpu.utils.flightrec`).
   dates the wedge.  The file rotates (`os.replace` to `<path>.1`) past
   `max_bytes`.
 * **Schema helpers** — `validate_heartbeat_line` / `read_heartbeat` /
-  `last_line_age_s` / `render_postmortem`.  A trail written by either
-  package validates and reads under the other's helpers (same schema,
-  version 2).
+  `last_line_age_s` / `render_postmortem`, and `render_pod_postmortem`
+  over a pod's trails (one a process, stamped with its `host_id`).  A
+  trail written by either package validates and reads under the
+  other's helpers (same schema, version 2).
 
-Stdlib only.  The twin's merged multi-host postmortem waits with the
-pod (ROADMAP §1 item 6), and `render_postmortem` leaves out the twin's
-sections for planes the port does not have yet (the graph census, the
-elastic membership, the native admission front end).
+Stdlib only.  `render_postmortem` leaves out the twin's sections for
+planes the port does not have yet (the graph census, the elastic
+membership, the native admission front end), and the pod post-mortem
+the elastic pod's membership epoch (ROADMAP §1 item 6b).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import json
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 #: heartbeat line schema version.  v2: a line may carry `host_id` /
 #: `process_index` (one trail per pod process); v1 lines stay valid
@@ -374,4 +375,53 @@ def render_postmortem(path: str,
         bls_disp = bls_disp or ev.get("bls_device_pairing_dispatches")
     if bls_disp:
         out.append(f"  bls device pairing: {bls_disp} dispatch(es)")
+    return "\n".join(out)
+
+
+def render_pod_postmortem(paths: Sequence[str],
+                          now: Optional[float] = None) -> str:
+    """Merged post-mortem over a pod's heartbeat trails (one file a pod
+    process).  The header ranks the trails by last-beat age, oldest
+    first: on a wedged pod the host that went quiet first is where the
+    post-mortem starts.  Each file's single-trail summary follows.  A
+    missing or empty trail is itself a ranked finding (a process that
+    never beat died before its recorder started)."""
+    now = time.time() if now is None else now
+    rows = []                  # (sort key, label line)
+    for k, path in enumerate(paths):
+        label = f"host file {k} ({path})"
+        try:
+            lines, bad = read_heartbeat(path)
+        except OSError as e:
+            rows.append((float("-inf"), f"  {label}: UNREADABLE "
+                                       f"({e.__class__.__name__}) — "
+                                       f"died before first beat?"))
+            continue
+        if not lines:
+            rows.append((float("-inf"),
+                         f"  {label}: no valid lines ({len(bad)} bad)"))
+            continue
+        last = lines[-1]
+        age = now - last["t"]
+        host = last.get("host_id")
+        who = (f"host {host}" if host is not None
+               else f"pid {last['pid']}")
+        interval = float(last.get("interval_s", 0)) or None
+        stale = interval is not None and age > 2 * interval
+        rows.append((
+            -age,
+            f"  {who}: last beat {_fmt_t(last['t'])} "
+            f"(age {age:.1f}s, {len(lines)} beats, seq {last['seq']})"
+            + (" — STALE: wedged/died around this time" if stale
+               else " — fresh")))
+    out = [f"pod heartbeat merge: {len(paths)} trail(s), oldest "
+           f"last-beat first (the first host to go quiet is where the "
+           f"wedge began)"]
+    out.extend(line for _, line in sorted(rows, key=lambda r: r[0]))
+    for path in paths:
+        out.append("")
+        try:
+            out.append(render_postmortem(path, now=now))
+        except OSError as e:
+            out.append(f"heartbeat {path}: unreadable ({e})")
     return "\n".join(out)

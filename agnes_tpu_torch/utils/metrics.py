@@ -348,6 +348,11 @@ SERVE_NATIVE_DENSIFY_WALL_S = "serve_native_densify_wall_s"
 SERVE_NATIVE_PHASE_BUILDS = "serve_native_phase_builds"
 SERVE_NATIVE_SHARD_DEPTH_PREFIX = "serve_native_shard_depth_"
 SERVE_NATIVE_SHARD_REJECTS_PREFIX = "serve_native_shard_rejects_"
+#: the pod (distributed/): records a host's front door screened off
+#: because their global instance id belongs to another host's block
+#: (counter, distributed/shard.py; the drain report's
+#: `pod.foreign_rejects`)
+POD_FOREIGN_REJECTS = "pod_foreign_rejects"
 #: per-kernel first-build wall gauges, `compile_ms_<kernel>`: the port's
 #: only compile is a kernel's nvcc build (cuda_build.py)
 COMPILE_MS_PREFIX = "compile_ms_"

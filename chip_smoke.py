@@ -268,6 +268,37 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      dense mode, warmup armed), the pump loop under sync debug mode
      "error": phase 8's served driver leaf for leaf, one verify launch a
      height, the served votes/s and the peak against the dense plan.
+  13. the static pod (`agnes_tpu_torch.distributed`, `pod_phase`): phase
+     8's three signed heights (I = 1,024 x V = 1,000, validator 7 forged
+     in both classes) served by pods of processes spawned through
+     `distributed.smoke.spawn_pod` (`file://` rendezvous, a deadline that
+     kills a wedged pod), after the parent has released its cached
+     device memory.  First the same heights through the one-process
+     dense path (`build_phases_device_dense` -> `step_seq_signed_dense`),
+     held against phase 8's served driver, and the verify kernel timed
+     alone at the pod's launch shape (one host's 1,024,000 cells).  (a) 2
+     hosts x (1 x 1): each host a `DistributedDriver` + `HostShard` on
+     its own card, or both on card 0 of a one-card machine (their times
+     then include each other's work), given the whole global wire,
+     batches closed by size, the warmup between barriers and armed, a
+     decision gather after each height.  Required on every process: the
+     other host's records screened (`foreign_rejects`), one verify
+     launch of 1,024,000 cells a height rejecting 2 x 512 lanes, no
+     retrace, no off-ladder build, one warmed shape; the gathered
+     decision rows identical on both processes and covering all 1,024
+     instances; the host blocks, concatenated host-major, equal to the
+     one-process dense path in state, tally and decisions, leaf for
+     leaf; the kernel equal to plain on every cell of 16 sampled
+     instance rows of each process's last launch (its 32 forged cells
+     rejected); a heartbeat trail a process stamped with its host,
+     ranked by `render_pod_postmortem`.  (b) (a) with
+     `native_admission=True`, the same checks and (a)'s blocks.  (c) one
+     host of several ranks, 1 x 2 (val), where the machine has two
+     cards (2 hosts x (1 x 2) with four), held against (a); "not run: N
+     card(s)" otherwise.  It logs per process the pod-wide served
+     votes/s and per tick the densify, host launch, step and kernel
+     device times, the agree and decision-gather walls, the device peak
+     against the dense plan and the host RSS, and the phase's wall.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -276,7 +307,9 @@ that launch's 200 lanes, and with `launches_native_phase`, the C++
 loop's launches in phase 10, and that phase's stage tables, and with
 `launches_native_serve_phase`, phase 11's launches, and its runs'
 numbers under `native_serve`, and with `launches_dense_phase`, phase
-12's launches on its paths, and its numbers under `dense`),
+12's launches on its paths, and its numbers under `dense`, and with
+`launches_pod_phase`, the pod processes' launches in phase 13, and its
+numbers under `pod`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -320,6 +353,8 @@ NATIVE_SERVE_PRODUCERS = 4         # phase 11: threads feeding the threaded host
 NATIVE_SERVE_CHUNK = 16_384        # phase 11: records a submitted blob
 DENSE_SAMPLE_ROWS = 16             # phase 12: instance rows held against plain
 MESH_JOIN_S = 600                  # phase 12: the spawned ranks' deadline
+POD_HOSTS = 2                      # phase 13: the pod's hosts
+POD_JOIN_S = 600                   # phase 13: a pod run's deadline
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -3508,6 +3543,262 @@ def _dense_serve(mesh, seeds, pubkeys, sigs, ref, classes, hbm,
             "dense_serve_plan_peak_bytes": plan.peak_bytes}
 
 
+def _pod_run(tag: str, n_processes: int, per_host: int, n_val: int,
+             native: bool, tmp: str) -> dict:
+    """One pod of phase 13 through `spawn_pod` on the card: phase 8's
+    traffic (I_SIGNED x V_SIGNED, SERVE_HEIGHTS heights, validator
+    FORGED forged in both classes), heartbeats and state dumps on.
+    Any worker's error or a deadline kill fails the phase."""
+    from agnes_tpu_torch.distributed.smoke import spawn_pod
+
+    res = spawn_pod(n_processes, per_host=per_host, n_val=n_val,
+                    instances=I_SIGNED, validators=V_SIGNED,
+                    heights=SERVE_HEIGHTS - 1, forge=FORGED,
+                    device=DEVICE, out_dir=os.path.join(tmp, tag),
+                    timeout_s=POD_JOIN_S, heartbeat=True, dump_state=True,
+                    native_admission=native)
+    bad = [r for r in res["pod"] if "error" in r]
+    if res["killed"] or bad:
+        logs = {t: open(p["log"]).read()[-3000:]
+                for t, p in res["paths"].items()}
+        raise AssertionError(f"pod {tag} failed (killed {res['killed']}): "
+                             f"{bad}; logs {logs}")
+    return res
+
+
+def _pod_blocks(res, per_host: int, n_hosts: int) -> dict:
+    """A pod's host blocks concatenated host-major ({name: numpy}); every
+    rank of a host must hold its host's block leaf for leaf."""
+    import numpy as np
+
+    blocks = []
+    for h in range(n_hosts):
+        ranks = [dict(np.load(res["paths"][f"pod{h * per_host + k}"]["npz"]))
+                 for k in range(per_host)]
+        for other in ranks[1:]:
+            if not all(np.array_equal(other[key], ranks[0][key])
+                       for key in ranks[0]):
+                raise AssertionError(f"host {h}'s ranks hold different "
+                                     f"blocks")
+        blocks.append(ranks[0])
+    return {key: np.concatenate([b[key] for b in blocks], axis=0)
+            for key in blocks[0]}
+
+
+def _pod_checks(res, per_host: int, n_hosts: int, ref: dict):
+    """Phase 13's per-pod checks (module docstring): ({check: held?},
+    the pod's host blocks)."""
+    import numpy as np
+
+    from agnes_tpu_torch.distributed.smoke import SAMPLE_ROWS
+    from agnes_tpu_torch.distributed.smoke import VALUE as POD_VALUE
+    from agnes_tpu_torch.utils.flightrec import (
+        read_heartbeat,
+        render_pod_postmortem,
+    )
+
+    I, Vn, H = I_SIGNED, V_SIGNED, SERVE_HEIGHTS
+    local = I // n_hosts
+    recs = res["pod"]
+    cells = 2 * local * Vn
+    rows = [r["pod_decision_rows"] for r in recs]
+    blocks = _pod_blocks(res, per_host, n_hosts)
+    hbs = [res["paths"][f"pod{k}"]["heartbeat"] for k in range(len(recs))]
+    stamped = all(
+        (lambda lines: bool(lines) and all(
+            ln.get("host_id") == k // per_host for ln in lines))(
+            read_heartbeat(p)[0]) for k, p in enumerate(hbs))
+    head = render_pod_postmortem(hbs).split("\n\n")[0].splitlines()[1:]
+    return {
+        "foreign records screened on every host": all(
+            r["foreign_rejects"] == H * 2 * (I - local) * Vn for r in recs),
+        "one verify launch of 2 x local x V cells a height": all(
+            r["launches_by_height"] == [1] * H and r["launches"] == H
+            and r["cells_by_dispatch"] == [cells] * H for r in recs),
+        "2 x local rejected lanes a height": all(
+            r["rejected_by_height"] == [2 * local] * H for r in recs),
+        "no retrace, no off-ladder build, no host fallback": all(
+            r["retrace_unexpected"] == 0 and r["offladder_builds"] == 0
+            and r["host_fallback_builds"] == 0 for r in recs),
+        "one warmed shape, one warmup launch": all(
+            r["warmed_shapes"] == 1 and r["warm_launches"] == 1
+            for r in recs),
+        "gathered rows identical and cover every instance":
+            all(x == rows[0] for x in rows)
+            and [x[0] for x in rows[0]] == list(range(I))
+            and all(x[2:] == [0, 0, POD_VALUE] for x in rows[0]),
+        "host blocks == the one-process dense path, leaf for leaf":
+            set(blocks) == set(ref) and all(
+                np.array_equal(blocks[k], ref[k]) for k in ref),
+        "kernel == plain on the sampled rows, forged cells rejected": all(
+            r["sample"]["mismatches"] == 0 and r["sample"]["verdicts_right"]
+            and r["sample"]["forged_cells"] == 2 * SAMPLE_ROWS
+            for r in recs),
+        "a host-stamped heartbeat a process, ranked by the post-mortem":
+            stamped and sorted(ln.split(":")[0].strip() for ln in head)
+            == sorted(f"host {k // per_host}" for k in range(len(recs))),
+    }, blocks
+
+
+def _pod_log(tag: str, res, card: str, shared: bool) -> None:
+    """Phase 13's per-process lines: votes/s, per tick densify, host
+    launch, step and kernel (CUDA events), agree and gather walls, the
+    device peak against the dense plan, host RSS."""
+    def fmt(xs):
+        return ("not measured" if xs is None
+                else "/".join(f"{x:.1f}" for x in xs))
+
+    share = (" (both processes on card 0: each time includes the other's "
+             "work)" if shared else "")
+    for r in res["pod"]:
+        ag = sorted(r["agree_ms"])
+        log(f"[pod {tag}] process {r['process']} host {r['host']}: pod-wide "
+            f"served votes/s={r['votes_per_sec']:.0f} (heights 1-"
+            f"{r['heights']}; all {r['heights'] + 1} in {r['wall_s']:.3f} "
+            f"s); per tick densify ms {fmt(r['densify_ms'])}, host launch "
+            f"ms {fmt(r['launch_ms'])}, step ms {fmt(r['step_ms'])}, "
+            f"kernel ms {fmt(r['kernel_ms'])} ({r['launches']} launches of "
+            f"{r['cells_by_dispatch'][0]} cells), decision gather ms "
+            f"{fmt(r['gather_ms'])}, agree ms median {ag[len(ag) // 2]:.2f} "
+            f"max {ag[-1]:.2f} over {len(ag)}; device peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB against the dense plan's "
+            f"{r['plan_peak_bytes'] / 2**30:.3f}; host RSS after the drain "
+            f"{r['rss_gib']:.2f} GiB{share}; card {card}")
+
+
+def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
+    """Phase 13: the static pod on the card; see the module docstring.
+    `sigs` are phase 8's signatures, `serve_ref` its served driver.
+    Returns the numbers for the verify kernel's line."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.distributed.smoke import state_arrays
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.types import VoteType
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    card = smi("name,power.limit")
+    classes = (int(VoteType.PREVOTE), int(VoteType.PRECOMMIT))
+    I, Vn, H = I_SIGNED, V_SIGNED, SERVE_HEIGHTS
+    n_cards = torch.cuda.device_count()
+
+    # -- the one-process dense path of the same heights (the reference) ----
+    d = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+    for h in range(H):
+        bat.sync_device(np.zeros(I, np.int64), np.full(I, h, np.int64))
+        for typ in classes:
+            bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, h, typ, VALUE,
+                                              sigs=sigs[h, typ]))
+        phases, dense = bat.build_phases_device_dense(pubkeys)
+        d.step_seq_signed_dense([d.empty_phase()] + [p for p, _ in phases],
+                                dense)
+    d.collect()
+    ref = state_arrays(d)
+    leaves = ([ref[f"state_{f}"] for f in type(d.state)._fields]
+              + [ref[f"tally_{f}"] for f in type(d.tally)._fields])
+    if not (all(np.array_equal(a, b.cpu().numpy())
+                for a, b in zip(leaves, serve_ref["leaves"]))
+            and all(np.array_equal(ref[f], serve_ref["stats"][f])
+                    for f in ("decided", "decision_value",
+                              "decision_round"))):
+        raise AssertionError("the one-process dense path != phase 8's "
+                             "served driver")
+    # the pod's launch shape, one host's block (the fixture's lanes do not
+    # depend on the instance): the kernel timed alone at it
+    half = dense._replace(sig=dense.sig[:, :I // POD_HOSTS].contiguous(),
+                          blocks=dense.blocks[:, :I // POD_HOSTS]
+                          .contiguous())
+    n_cells = int(half.sig.shape[0]) * (I // POD_HOSTS) * Vn
+    pub = half.pub[None, None].expand(2, I // POD_HOSTS, Vn, 32) \
+        .reshape(-1, 32)
+    args, _ = V.prologue(pub, half.sig.reshape(-1, 64),
+                         half.blocks.reshape((-1,) + half.blocks.shape[3:]))
+    alone_ms = cuda_ms(lambda: V.verify_signed5(*args), KERNEL_REPS)
+    bound_ms, bound_by = bound(V.INT32_OPS_PER_LANE * n_cells,
+                               V.BYTES_PER_LANE * n_cells)
+    del d, bat, phases, dense, half, pub, args
+    torch.cuda.empty_cache()     # phase 12(b) leaves ~36 GiB reserved
+    log(f"[pod] the one-process dense path of phase 8's {H} heights == "
+        f"phase 8's served driver; the verify kernel alone at the pod's "
+        f"launch shape ({n_cells} cells): {alone_ms:.3f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}, {bound_ms / alone_ms:.1%}); cards "
+        f"on this machine: {n_cards}; card {card}")
+
+    out = {"pod_cells": n_cells, "pod_kernel_alone_ms": alone_ms,
+           "pod_bound_ms": bound_ms, "pod_cards": n_cards}
+    tmp = tempfile.mkdtemp(prefix="agnes-pod-")
+    launches = 0
+    try:
+        runs = {}
+        for tag, native in (("a", False), ("b", True)):
+            t0 = time.perf_counter()
+            res = _pod_run(tag, POD_HOSTS, 1, 1, native, tmp)
+            wall = time.perf_counter() - t0
+            checks, blocks = _pod_checks(res, 1, POD_HOSTS, ref)
+            if tag == "b":
+                checks["== (a), leaf for leaf"] = all(
+                    np.array_equal(blocks[k], runs["a"][1][k])
+                    for k in blocks)
+                checks["native admission on every host"] = all(
+                    r["native_admission"] for r in res["pod"])
+            if not all(checks.values()):
+                raise AssertionError(f"pod ({tag}) failed: {checks}; "
+                                     f"records {res['pod']}")
+            runs[tag] = (res, blocks)
+            _pod_log(tag, res, card, shared=n_cards < POD_HOSTS)
+            recs = res["pod"]
+            launches += sum(r["launches"] for r in recs)
+            log(f"[pod {tag}] {POD_HOSTS} hosts x (1 x 1)"
+                + (", native admission" if native else "")
+                + f": {len(recs)} processes, wall {wall:.1f} s (spawn to "
+                f"join); every check held: {sorted(checks)}; card {card}")
+            out[f"pod_{tag}"] = {
+                "votes_per_s": [r["votes_per_sec"] for r in recs],
+                "step_ms": [r["step_ms"] for r in recs],
+                "kernel_ms": [r["kernel_ms"] for r in recs],
+                "densify_ms": [r["densify_ms"] for r in recs],
+                "launch_ms": [r["launch_ms"] for r in recs],
+                "agree_ms": [r["agree_ms"] for r in recs],
+                "gather_ms": [r["gather_ms"] for r in recs],
+                "peak_bytes": [r["peak_bytes"] for r in recs],
+                "plan_peak_bytes": recs[0]["plan_peak_bytes"],
+                "rss_gib": [r["rss_gib"] for r in recs],
+                "launches": [r["launches"] for r in recs],
+                "wall_s": wall, "shared_card": n_cards < POD_HOSTS}
+
+        # -- (c) one host of several ranks: dense serving over a mesh ------
+        if n_cards >= 2:
+            n_proc, hosts = (4, 2) if n_cards >= 4 else (2, 1)
+            res = _pod_run("c", n_proc, 2, 2, False, tmp)
+            blocks = _pod_blocks(res, 2, hosts)
+            same = all(np.array_equal(blocks[k], runs["a"][1][k])
+                       for k in blocks)
+            if not same:
+                raise AssertionError("pod (c) != (a)")
+            launches += sum(r["launches"] for r in res["pod"])
+            _pod_log("c", res, card, shared=False)
+            log(f"[pod c] {hosts} host(s) x (1 x 2) over {n_proc} cards: "
+                f"host blocks == (a), leaf for leaf; card {card}")
+            out["pod_c"] = {"processes": n_proc, "hosts": hosts}
+        else:
+            log(f"[pod c] one host of several ranks: not run: {n_cards} "
+                f"card(s); card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"[pod] phase 13 {wall:.1f} s; verify launches on its paths "
+        f"{launches} (one a height a process; warmup and sample launches "
+        f"counted apart); card {card}")
+    out["pod_phase_s"] = wall
+    return {"launches_pod_phase": launches, "pod": out}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4186,7 +4477,13 @@ def main(argv=None) -> int:
     rows["ed25519_verify_signed5"].update(dense_mesh_phase(
         seeds, pubkeys, sigs, lane_ref, north_decisions, s_sigs, serve_ref,
         bound))
-    del s_sigs, serve_ref, lane_ref
+    del lane_ref
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the static pod ----------------------------------------
+    rows["ed25519_verify_signed5"].update(pod_phase(
+        seeds, pubkeys, s_sigs, serve_ref, bound))
+    del s_sigs, serve_ref
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -10,8 +10,9 @@ config 1 under --small, a tapped network and an executor snapshot, and
 one unsigned tick of the C++ ingest loop with its checkpoint, the
 library built from the port's own `core/native/` sources only, and the
 native admission queue and its shards, the runtime lock checker and an
-unsigned height served by the threaded host over native admission, and
-the mesh and sharding layer `agnes_tpu_torch.parallel`), and never loads
+unsigned height served by the threaded host over native admission, the
+mesh and sharding layer `agnes_tpu_torch.parallel`, and the static pod
+`agnes_tpu_torch.distributed` with its worker module), and never loads
 `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
@@ -209,6 +210,16 @@ trep = tsvc.drain(timeout_s=60)
 assert trep["decisions_total"] == 2 and trep["thread_failure"] is None
 assert isinstance(lockcheck.LockOrderState(), lockcheck.LockOrderState)
 
+import agnes_tpu_torch.distributed
+from agnes_tpu_torch.distributed import (DistributedDriver, HostPlan,  # noqa: F401
+                                         HostShard, initialize_pod,
+                                         pack_decision_frame, spawn_pod,
+                                         unpack_decision_frames)
+from agnes_tpu_torch.distributed import smoke as pod_smoke  # noqa: F401
+assert HostPlan(2, 8).instance_range(1) == (4, 8)
+assert [(x.instance, x.value_id) for x in unpack_decision_frames(
+    pack_decision_frame(1, [5], [-1], [0], [2], 2)[None])] == [(5, None)]
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
@@ -225,7 +236,8 @@ if not torch.cuda.is_available():
                  lambda: configs.run(3, small=True),
                  lambda: configs.run(1, small=True),
                  lambda: MB.main(["--lanes", "2048"]),
-                 lambda: NativeIngestLoop(2, 4, n_slots=4)):
+                 lambda: NativeIngestLoop(2, 4, n_slots=4),
+                 lambda: initialize_pod("file:///nonexistent", 1, 0)):
         try:
             make()
         except RuntimeError:
