@@ -105,15 +105,21 @@ def _add_const(a: torch.Tensor, c: Sequence[int]) -> torch.Tensor:
                                                      + (1,) * (a.ndim - 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _vp_scales(n: int, fold, device: torch.device, ndim: int):
+    """`field._pass_scales` shaped [n, 1, ...] to broadcast over the
+    batch axes of an `ndim`-axis limb-first tensor."""
+    shape = (-1,) + (1,) * (ndim - 1)
+    return tuple(s.view(shape) for s in F._pass_scales(n, fold, device))
+
+
 def _vp(r: torch.Tensor, fold) -> torch.Tensor:
     """One vectorized carry pass along the leading limb axis: the
     fused multiply-add form of `field._vpass` (fold=None: exact, the top
     limb intact)."""
     hi = r >> BITS                 # arithmetic: signed carries
-    lo_scale, up_scale = F._pass_scales(r.shape[0], fold, r.device)
-    shape = (-1,) + (1,) * (r.ndim - 1)
-    return torch.addcmul(r, hi, lo_scale.view(shape)).addcmul_(
-        hi.roll(1, 0), up_scale.view(shape))
+    lo_scale, up_scale = _vp_scales(r.shape[0], fold, r.device, r.ndim)
+    return torch.addcmul(r, hi, lo_scale).addcmul_(hi.roll(1, 0), up_scale)
 
 
 def _carry(r: torch.Tensor, passes: int) -> torch.Tensor:

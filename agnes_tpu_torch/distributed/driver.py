@@ -162,14 +162,27 @@ class DistributedDriver(DeviceDriver):
             view.counts = counts
         return msgs, rejects
 
-    def _local_shape(self):
+    def _local_shape(self, n_live=None):
         """(I, V) as this rank's block holds them: the host's slice over
         the data extent one host owns (`mesh_local_shape(n_hosts=)` on
-        the pod mesh)."""
+        the pod mesh).  With a live membership of `n_live` hosts (the
+        elastic pod) a surviving owner serves the bigger slice I *
+        n_hosts / n_live over the data extent of n_hosts / n_live hosts,
+        so the slice is scaled up here and mesh_local_shape's live
+        divisor cancels it: the figure a rank holds does not change with
+        the membership (the pod mesh never shrinks).  Passing the static
+        slice with a live divisor would under-claim a rank's instances,
+        and the memory bound would pass on a shape the full deployment
+        does not fit."""
         from agnes_tpu_torch.utils.budget import mesh_local_shape
 
-        return mesh_local_shape(self.pod_mesh, self.I, self.V,
-                                n_hosts=self.n_hosts)
+        live = self.n_hosts if n_live is None else int(n_live)
+        if live < 1 or (self.I * self.n_hosts) % live:
+            raise ValueError(
+                f"{self.I * self.n_hosts} instances do not repartition "
+                f"evenly over {live} live host(s)")
+        return mesh_local_shape(self.pod_mesh, self.I * self.n_hosts // live,
+                                self.V, n_hosts=self.n_hosts, n_live=live)
 
     def set_proposer_table(self, flags, rotation_period: int) -> None:
         raise NotImplementedError(

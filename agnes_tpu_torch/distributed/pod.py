@@ -21,6 +21,8 @@ failure instead of a silent hang:
 * **allgather_bytes(frame)** — the decision-gather transport: each
   process contributes one fixed-size uint8 frame and gets
   [n_processes, len] back, in rank order.
+* **negotiate(frame)** — the elastic pod's per-tick exchange
+  (distributed/elastic.py): the same gather, counted apart.
 
 Departure from the twin, by design: the twin's gathers ride the device
 fabric (`process_allgather`); the port's ride a `gloo` group of every
@@ -139,6 +141,7 @@ class PodCoordinator:
         self.agrees = 0
         self.barriers = 0
         self.gathered_frames = 0
+        self.negotiations = 0
 
     # -- transport -----------------------------------------------------------
 
@@ -161,6 +164,17 @@ class PodCoordinator:
         self.gathered_frames += 1
         if self.monitor is not None:
             self.monitor.beat(None)     # completed: everybody live
+        return out
+
+    def negotiate(self, frame: np.ndarray) -> np.ndarray:
+        """The elastic pod's per-tick exchange: the same fixed-size
+        all_gather as `allgather_bytes`, counted in `negotiations`, so a
+        post-mortem tells negotiated ticks (shape plans, decisions,
+        membership intents and re-routed gossip in one frame,
+        distributed/elastic.py) from plain decision gathers.  Padding to
+        the merged plan is the caller's."""
+        out = self.allgather_bytes(frame)
+        self.negotiations += 1
         return out
 
     # -- lockstep ------------------------------------------------------------

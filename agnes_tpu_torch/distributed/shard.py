@@ -160,35 +160,47 @@ class HostShard:
         decisions this gather surfaced; `pod_decisions` accumulates
         them.  Fails closed on a dead peer (module docstring)."""
         self.monitor.check()
+        frames = self.coordinator.allgather_bytes(
+            self._local_decision_frame())
+        new = unpack_decision_frames(self._host_rows(frames, "decision"))
+        self.pod_decisions.extend(new)
+        return new
+
+    def _local_decision_frame(self) -> np.ndarray:
+        """Newly latched local decisions (a local poll, which settles the
+        dispatches in flight) as one decision frame in global ids.  The
+        height stamp is the instance's first-advance height (its first
+        latched decision's height, kept by the pipeline); an instance
+        polled before its window advanced is still on its decided height,
+        so the live height is the fallback."""
         local = self.service.poll_decisions()
         inst = self.plan.to_global(
             self.host, np.asarray([d.instance for d in local], np.int64))
-        # height stamp: the instance's first-advance height (its first
-        # latched decision's height, kept by the pipeline); an instance
-        # polled before its window advanced is still on its decided
-        # height, so the live height is the fallback
         fah = self.service.pipeline.first_advance_height
         hts = np.asarray(
             [fah.get(d.instance,
                      int(self.service.batcher.heights[d.instance]))
              for d in local], np.int64)
-        frame = pack_decision_frame(
+        return pack_decision_frame(
             self.host, inst,
             np.asarray([(d.value_id if d.value_id is not None else -1)
                         for d in local], np.int64),
             np.asarray([d.round for d in local], np.int64),
             hts, self._frame_cap)
-        frames = self.coordinator.allgather_bytes(frame)
-        first = frames[::self.per_host]      # each host's first rank
-        bad = [p for p, row in enumerate(frames)
-               if not np.array_equal(row, first[p // self.per_host])]
+
+    def _host_rows(self, frames: np.ndarray, what: str) -> np.ndarray:
+        """[n_hosts, len]: each host's first rank's row of a gathered
+        [n_processes, len] frame.  The other ranks of a host hold the
+        same gossip and build the same batches, so their rows must equal
+        it byte for byte; PodDivergenceError otherwise."""
+        first = frames[::self.per_host]
+        bad = [p for p, row in enumerate(frames) if p % self.per_host
+               and not np.array_equal(row, first[p // self.per_host])]
         if bad:
             raise PodDivergenceError(
-                f"decision frames of process(es) {bad} differ from their "
+                f"{what} frames of process(es) {bad} differ from their "
                 f"host's first rank: the ranks of one host diverged")
-        new = unpack_decision_frames(first)
-        self.pod_decisions.extend(new)
-        return new
+        return first
 
     def drain(self, gather: bool = True) -> dict:
         """Drain the local slice and (in lockstep) run one last decision

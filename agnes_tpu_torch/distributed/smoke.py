@@ -1,5 +1,5 @@
 """The spawnable pod worker and the spawner (twin of
-`agnes_tpu.distributed.smoke`, without its elastic mode).
+`agnes_tpu.distributed.smoke`).
 
     python -m agnes_tpu_torch.distributed.smoke --mode pod --pid 0 \\
         --n-processes 2 --init-method file:///tmp/pod/rendezvous \\
@@ -15,6 +15,12 @@ them leaf for leaf without touching a process group:
               the warmup between barriers and armed, a decision gather
               after each height, a heartbeat trail stamped with the host,
               the drain.  Dumps its host's block.
+* ``elastic`` the same deployment through ElasticShard's negotiated
+              ticks (distributed/elastic.py): heterogeneous traffic a
+              host, padded to each tick's max, and one leave / rejoin
+              cycle of the last host across epoch boundaries
+              (`run_elastic_worker` has the choreography).  Dumps its
+              host's block.
 * ``single``  one host of `--n-processes` ranks serving the same
               deployment through a plain VoteService over a
               DistributedDriver with a coordinator attached (dense
@@ -28,9 +34,10 @@ Each height's traffic is both vote classes of every (instance,
 validator) for value `VALUE`, signed with the fixture keys
 (`harness/fixtures.py`); `--forge F` signs validator F's votes with its
 neighbour's key in both classes.  Workers load only torch and the port.
-On "cuda" a pod worker also holds the verify kernel of its last dispatch
-against the plain version on `SAMPLE_ROWS` instance rows (outside the
-counted path).
+On "cuda" a pod or elastic worker also runs the verify kernel again on
+its last dispatch's cells, at that launch's shape, and holds it against
+the plain version on `SAMPLE_ROWS` instance rows (outside the counted
+path).
 
 `spawn_pod` (`start_pod(...).wait()`) is the parent's side: it launches
 a world's workers (and the `single` / `offline` comparison worlds, each
@@ -50,6 +57,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from typing import List, Optional
 
 import numpy as np
@@ -105,10 +113,11 @@ def state_arrays(driver) -> dict:
 
 
 def plain_sample(dense, rows: int, forged: Optional[int], rng) -> dict:
-    """The verify kernel against its plain version on every cell of
-    `rows` sampled instance rows of a dense batch (both classes, so the
-    forged validator's cells too), and whether the verdicts are exactly
-    "every forged cell rejected, every other accepted"."""
+    """The verify kernel at a dense batch's launch shape (every cell)
+    against its plain version on every cell of `rows` sampled instance
+    rows (both classes, so the forged validator's cells too), and whether
+    the verdicts are exactly "every forged cell rejected, every other
+    accepted"."""
     import torch
 
     from agnes_tpu_torch.crypto import verify as VF
@@ -117,18 +126,23 @@ def plain_sample(dense, rows: int, forged: Optional[int], rng) -> dict:
     rows = min(rows, I)
     pick = torch.from_numpy(rng.choice(I, rows, replace=False)) \
         .to(dense.sig.device)
+    full, _ = VF.prologue(
+        dense.pub[None, None].expand(Ps, I, Vn, 32).reshape(-1, 32),
+        dense.sig.reshape(-1, 64),
+        dense.blocks.reshape((-1,) + dense.blocks.shape[3:]))
+    got = VF.verify_signed5(*full).reshape(Ps, I, Vn)[:, pick].reshape(-1)
+    del full
     sig = dense.sig[:, pick].reshape(-1, 64)
     blocks = dense.blocks[:, pick].reshape((-1,) + dense.blocks.shape[3:])
     pub = dense.pub[None, None].expand(Ps, rows, Vn, 32).reshape(-1, 32)
     args, ok_s = VF.prologue(pub, sig, blocks)
-    got = VF.verify_signed5(*args)
     plain = VF.verify_plain(*args)
     diff = (got.to(torch.int64) - plain.to(torch.int64)).abs()
     ok = ((got > 0) & ok_s).reshape(Ps, rows, Vn).cpu()
     is_forged = torch.zeros((Ps, rows, Vn), dtype=torch.bool)
     if forged is not None:
         is_forged[:, :, forged] = True
-    return {"cells": int(sig.shape[0]),
+    return {"cells": int(sig.shape[0]), "launch_cells": Ps * I * Vn,
             "mismatches": int((diff != 0).sum()),
             "max_abs_err": int(diff.max()) if diff.numel() else 0,
             "forged_cells": int(is_forged.sum()),
@@ -136,20 +150,38 @@ def plain_sample(dense, rows: int, forged: Optional[int], rng) -> dict:
                                and bool(ok[~is_forged].all()))}
 
 
+def _timed(fn, into: list, keep=lambda out: True):
+    """`fn`, appending each call's wall in ms to `into` when
+    `keep(result)`."""
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        if keep(out):
+            into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return call
+
+
 class _TickClock:
     """Per-dispatch host and device times of a driver, the verify
     kernel's device time a launch, and the walls of a coordinator's
-    agree() and a pipeline's stage (densify): the wrappers record, then
-    call through.  Device times are CUDA events (None on the CPU)."""
+    agree() and negotiate(), of a pipeline's stage (densify) and of the
+    elastic frame's pack and unpack (one unpack a host row): the
+    wrappers record, then call through.  Device times are CUDA events
+    (None on the CPU)."""
 
     def __init__(self, driver, pipeline, coordinator, cuda: bool):
         import torch
 
         from agnes_tpu_torch.crypto import verify as VF
+        from agnes_tpu_torch.distributed import elastic as EL
 
         self.launch_ms: List[float] = []
         self.densify_ms: List[float] = []
         self.agree_ms: List[float] = []
+        self.negotiate_ms: List[float] = []
+        self.pack_ms: List[float] = []
+        self.unpack_ms: List[float] = []
         self.steps: list = []
         self.kernels: list = []
         self.last_lanes = None
@@ -182,23 +214,34 @@ class _TickClock:
                                   * driver.V)
             return out
 
-        def timed(fn, into, keep=lambda out: True):
-            def call(*a, **k):
-                t0 = time.perf_counter()
-                out = fn(*a, **k)
-                if keep(out):
-                    into.append((time.perf_counter() - t0) * 1e3)
-                return out
-            return call
-
         driver.step_async = step_async
         # a stage that staged nothing (an empty tick) is no densify
-        pipeline.stage = timed(stage, self.densify_ms, keep=bool)
-        coordinator.agree = timed(agree, self.agree_ms)
+        pipeline.stage = _timed(stage, self.densify_ms, keep=bool)
+        coordinator.agree = _timed(agree, self.agree_ms)
+        coordinator.negotiate = _timed(coordinator.negotiate,
+                                       self.negotiate_ms)
+        EL.pack_elastic_frame = _timed(EL.pack_elastic_frame, self.pack_ms)
+        EL.unpack_elastic_frame = _timed(EL.unpack_elastic_frame,
+                                         self.unpack_ms)
 
     @staticmethod
     def ms(events) -> List[float]:
         return [a.elapsed_time(b) for a, b in events]
+
+
+def _no_sync(fn, calls: list):
+    """`fn` run under `torch.cuda.set_sync_debug_mode("error")` (a call
+    that would wait for the card raises), counted in calls[0]."""
+    import torch
+
+    def call(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls[0] += 1
+    return call
 
 
 def _rss_gib() -> float:
@@ -221,77 +264,159 @@ def _setup(args):
 
 # -- the modes -----------------------------------------------------------------
 
+def _start_host(args, shard_cls, n_phases):
+    """A pod or elastic worker's set-up, after initialize_pod: the
+    DistributedDriver, the flight recorder and heartbeat, the shard
+    (`shard_cls`) with batches closed by size and a window predictor on
+    `box["h"]`, the signatures, the _TickClock, and the warmup of
+    `n_phases` between barriers and armed.  Launch counters are zeroed
+    and the device peak reset after the warmup."""
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.distributed.driver import DistributedDriver
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.serve import ShapeLadder
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.flightrec import FlightRecorder, Heartbeat
+
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    I, V = args.instances, args.validators
+    hbm = budget.device_hbm_bytes(dev) if cuda else CPU_HBM_BYTES
+    d = DistributedDriver(I, V, advance_height=True, defer_collect=True,
+                          audit=True, n_val=args.n_val,
+                          per_host=args.per_host, hbm_budget_bytes=hbm,
+                          device=dev)
+    flightrec = FlightRecorder()
+    hb = None
+    if args.heartbeat:
+        hb = Heartbeat(args.heartbeat, interval_s=HB_INTERVAL_S,
+                       recorder=flightrec, host_id=d.host).start()
+    n_local = d.I * V
+    box = {"h": 0}
+    seeds = fx.deterministic_seeds(V)
+    shard = shard_cls(
+        d, VoteBatcher(d.I, V, n_slots=4, device=dev),
+        fx.validator_pubkeys(seeds),
+        capacity=4 * 2 * n_local, target_votes=2 * n_local,
+        max_delay_s=1e9,                     # batches close by size
+        ladder=ShapeLadder.plan_dense(
+            I, V, local_shape=d._local_shape(), n_hosts=d.n_hosts,
+            min_rung=1 << (2 * n_local - 1).bit_length(), hbm_bytes=hbm),
+        window_predictor=lambda: (np.zeros(d.I, np.int64),
+                                  np.full(d.I, box["h"], np.int64)),
+        flightrec=flightrec, native_admission=args.native_admission)
+    if hb is not None:
+        hb.sources.append(lambda: shard.metrics.snapshot(
+            window=True, window_key="heartbeat"))
+    sigs = signatures(seeds, args.heights, VALUE, args.forge)
+    clock = _TickClock(d, shard.pipeline, shard.coordinator, cuda)
+    VF.LAUNCHES = 0
+    warmed = shard.warmup(n_phases=n_phases, arm=True)
+    warm_launches = VF.LAUNCHES
+    clock.kernels.clear()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    VF.LAUNCHES = 0
+    return SimpleNamespace(d=d, shard=shard, box=box, seeds=seeds,
+                           sigs=sigs, clock=clock, hb=hb, hbm=hbm,
+                           cuda=cuda, n_local=n_local, warmed=warmed,
+                           warm_launches=warm_launches)
+
+
+def _finish_host(args, w, rep: dict, seed: int) -> dict:
+    """The record fields a pod and an elastic worker share, read after
+    the drain (`rep`): counts, launches, times, peak, RSS, the kernel's
+    sample against plain (on "cuda") and the state dump."""
+    import torch
+
+    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.utils import budget
+    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
+
+    d, shard, clock = w.d, w.shard, w.clock
+    rss = _rss_gib()                         # the serve's buffers still held
+    launches = VF.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if w.cuda else None
+    # read before the sample, whose own launch the clock would record
+    step_ms = clock.ms(clock.steps) if w.cuda else None
+    kernel_ms = clock.ms(clock.kernels) if w.cuda else None
+    if w.hb is not None:
+        w.hb.stop()
+    sample = None
+    if w.cuda:
+        sample = plain_sample(clock.last_lanes, SAMPLE_ROWS, args.forge,
+                              np.random.RandomState(seed))
+    if args.state_npz:
+        np.savez(args.state_npz, **state_arrays(d))
+    plan = budget.plan_dense_verify(2, *d._local_shape(), hbm_bytes=w.hbm)
+    pod = rep["pod"]
+    return {
+        "process": args.pid, "host": d.host,
+        "n_hosts": d.n_hosts, "per_host": d.per_host,
+        "n_val": args.n_val, "device": str(d.device),
+        "instances": args.instances, "validators": args.validators,
+        "heights": args.heights, "local_instances": d.I,
+        "decisions_total": d.stats.decisions_total,
+        "pod_decisions": len(shard.pod_decisions),
+        "pod_decision_rows": sorted(
+            [pd.instance, pd.host, pd.height, pd.round,
+             -1 if pd.value_id is None else pd.value_id]
+            for pd in shard.pod_decisions),
+        "foreign_rejects": shard.foreign_rejects,
+        "rejected_signature_device": d.rejected_signature_device,
+        "launches": launches,
+        "cells_by_dispatch": clock.cells,
+        "warm_launches": w.warm_launches,
+        "retrace_unexpected": int(d.sentinel.metrics.counters.get(
+            RETRACE_UNEXPECTED, 0)),
+        "warmed_shapes": w.warmed,
+        "offladder_builds": rep["offladder_builds"],
+        "host_fallback_builds": rep["host_fallback_builds"],
+        "dispatched_batches": rep["dispatched_batches"],
+        "native_admission": bool(args.native_admission),
+        "native_phase_builds": rep["native_phase_builds"],
+        "agrees": pod["agrees"], "barriers": pod["barriers"],
+        "gather_failed": pod["gather_failed"],
+        "densify_ms": clock.densify_ms, "launch_ms": clock.launch_ms,
+        "step_ms": step_ms, "kernel_ms": kernel_ms,
+        "agree_ms": clock.agree_ms,
+        "peak_bytes": peak, "plan_peak_bytes": plan.peak_bytes,
+        "rss_gib": rss,
+        "sample": sample,
+        "heartbeat_path": args.heartbeat or None,
+    }
+
+
 def run_pod_worker(args) -> dict:
     """One pod process's serve loop (module docstring)."""
-    torch, dev = _setup(args)
+    _setup(args)
     from agnes_tpu_torch.distributed.pod import initialize_pod, shutdown_pod
 
     initialize_pod(args.init_method, args.n_processes, args.pid,
                    device_type=args.device)
 
-    from agnes_tpu_torch.bridge.ingest import VoteBatcher
     from agnes_tpu_torch.crypto import verify as VF
-    from agnes_tpu_torch.distributed.driver import DistributedDriver
     from agnes_tpu_torch.distributed.shard import HostShard
-    from agnes_tpu_torch.harness import fixtures as fx
-    from agnes_tpu_torch.serve import ShapeLadder
-    from agnes_tpu_torch.utils import budget
-    from agnes_tpu_torch.utils.flightrec import FlightRecorder, Heartbeat
-    from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
 
-    cuda = dev.type == "cuda"
     try:
         I, V, H = args.instances, args.validators, args.heights
-        hbm = budget.device_hbm_bytes(dev) if cuda else CPU_HBM_BYTES
-        d = DistributedDriver(I, V, advance_height=True,
-                              defer_collect=True, audit=True,
-                              n_val=args.n_val, per_host=args.per_host,
-                              hbm_budget_bytes=hbm, device=dev)
-        flightrec = FlightRecorder()
-        hb = None
-        if args.heartbeat:
-            hb = Heartbeat(args.heartbeat, interval_s=HB_INTERVAL_S,
-                           recorder=flightrec, host_id=d.host).start()
-        n_local = d.I * V
-        box = {"h": 0}
-        seeds = fx.deterministic_seeds(V)
-        shard = HostShard(
-            d, VoteBatcher(d.I, V, n_slots=4, device=dev),
-            fx.validator_pubkeys(seeds),
-            capacity=4 * 2 * n_local, target_votes=2 * n_local,
-            max_delay_s=1e9,                 # batches close by size
-            ladder=ShapeLadder.plan_dense(
-                I, V, local_shape=d._local_shape(), n_hosts=d.n_hosts,
-                min_rung=1 << (2 * n_local - 1).bit_length(),
-                hbm_bytes=hbm),
-            window_predictor=lambda: (np.zeros(d.I, np.int64),
-                                      np.full(d.I, box["h"], np.int64)),
-            flightrec=flightrec, native_admission=args.native_admission)
-        if hb is not None:
-            hb.sources.append(lambda: shard.metrics.snapshot(
-                window=True, window_key="heartbeat"))
-        sigs = signatures(seeds, H, VALUE, args.forge)
-        wire = [wire_height(I, V, seeds, h, VALUE, sigs)
-                for h in range(H + 1)]
-        clock = _TickClock(d, shard.pipeline, shard.coordinator, cuda)
         # the one shape height-paced traffic dispatches: P = 3 (entry +
         # both classes); the sentinel then arms the no-retrace invariant
-        VF.LAUNCHES = 0
-        warmed = shard.warmup(n_phases=(3,), arm=True)
-        warm_launches = VF.LAUNCHES
-        clock.kernels.clear()
-        if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-
+        w = _start_host(args, HostShard, (3,))
+        d, shard, n_local = w.d, w.shard, w.n_local
+        wire = [wire_height(I, V, w.seeds, h, VALUE, w.sigs)
+                for h in range(H + 1)]
         gather_ms, rejected, launches = [], [], []
-        VF.LAUNCHES = 0
         t_all = time.perf_counter()
         t0 = t_all
         for h in range(H + 1):
             if h == 1:
                 t0 = time.perf_counter()     # height 0 warms the path
-            box["h"] = h
+            w.box["h"] = h
             res = shard.submit(wire[h])
             if res.accepted != 2 * n_local:
                 raise RuntimeError(
@@ -314,63 +439,16 @@ def run_pod_worker(args) -> dict:
             rejected.append(d.rejected_signature_device - sum(rejected))
         dt = time.perf_counter() - t0
         wall = time.perf_counter() - t_all
-        rep = shard.drain()
-        rss = _rss_gib()                     # the serve's buffers still held
-        main_launches = VF.LAUNCHES
-        peak = torch.cuda.max_memory_allocated() if cuda else None
-        step_ms = clock.ms(clock.steps) if cuda else None
-        kernel_ms = clock.ms(clock.kernels) if cuda else None
-        if hb is not None:
-            hb.stop()
-        sample = None
-        if cuda:
-            sample = plain_sample(clock.last_lanes, SAMPLE_ROWS,
-                                  args.forge,
-                                  np.random.RandomState(1000 + args.pid))
-        if args.state_npz:
-            np.savez(args.state_npz, **state_arrays(d))
-        plan = budget.plan_dense_verify(2, *d._local_shape(),
-                                        hbm_bytes=hbm)
-        pod = rep["pod"]
-        return {
-            "mode": "pod", "process": args.pid, "host": d.host,
-            "n_hosts": d.n_hosts, "per_host": d.per_host,
-            "n_val": args.n_val, "device": str(dev),
-            "instances": I, "validators": V, "heights": H,
-            "local_instances": d.I,
+        rec = _finish_host(args, w, shard.drain(), 1000 + args.pid)
+        rec.update({
+            "mode": "pod",
             "votes_per_sec": 2 * I * V * H / dt if H else None,
             "wall_s": wall,
-            "decisions_total": d.stats.decisions_total,
-            "pod_decisions": len(shard.pod_decisions),
-            "pod_decision_rows": sorted(
-                [pd.instance, pd.host, pd.height, pd.round,
-                 -1 if pd.value_id is None else pd.value_id]
-                for pd in shard.pod_decisions),
-            "foreign_rejects": shard.foreign_rejects,
-            "rejected_signature_device": d.rejected_signature_device,
             "rejected_by_height": rejected,
-            "launches": main_launches,
             "launches_by_height": launches,
-            "cells_by_dispatch": clock.cells,
-            "warm_launches": warm_launches,
-            "retrace_unexpected": int(d.sentinel.metrics.counters.get(
-                RETRACE_UNEXPECTED, 0)),
-            "warmed_shapes": warmed,
-            "offladder_builds": rep["offladder_builds"],
-            "host_fallback_builds": rep["host_fallback_builds"],
-            "dispatched_batches": rep["dispatched_batches"],
-            "native_admission": bool(args.native_admission),
-            "native_phase_builds": rep["native_phase_builds"],
-            "agrees": pod["agrees"], "barriers": pod["barriers"],
-            "gather_failed": pod["gather_failed"],
-            "densify_ms": clock.densify_ms, "launch_ms": clock.launch_ms,
-            "step_ms": step_ms, "kernel_ms": kernel_ms,
-            "agree_ms": clock.agree_ms, "gather_ms": gather_ms,
-            "peak_bytes": peak, "plan_peak_bytes": plan.peak_bytes,
-            "rss_gib": rss,
-            "sample": sample,
-            "heartbeat_path": args.heartbeat or None,
-        }
+            "gather_ms": gather_ms,
+        })
+        return rec
     finally:
         shutdown_pod()
 
@@ -392,6 +470,198 @@ def _serve_heights(svc, box, wire, n: int) -> None:
         while svc.pipeline.dispatched_votes < 2 * n * (h + 1):
             svc.pump()
         _progress(f"height {h}: dispatched")
+
+
+def wire_range(I: int, V: int, seeds, h: int, lo: int, hi: int, typs,
+               sigs: dict) -> bytes:
+    """One height's wire of the classes `typs` for instances [lo, hi)
+    only, global instance ids: the traffic a host of the elastic smoke
+    is given."""
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.harness.fixtures import full_mesh_cols
+
+    parts = []
+    for typ in typs:
+        cols = full_mesh_cols(I, V, seeds, h, typ, VALUE, sigs=sigs[h, typ])
+        keep = (cols[0] >= lo) & (cols[0] < hi)
+        parts.append(pack_wire_votes(*(c[keep] for c in cols)))
+    return b"".join(parts)
+
+
+def check_cycle(heights: int, leave_height, rejoin_height) -> None:
+    """The elastic mode's one leave / rejoin cycle must lie within the
+    served heights: 0 <= leave_height < rejoin_height <= heights."""
+    if leave_height is None or rejoin_height is None or not (
+            0 <= leave_height < rejoin_height <= heights):
+        raise ValueError(
+            f"elastic mode needs 0 <= leave_height < rejoin_height <= "
+            f"heights, got {leave_height}, {rejoin_height}, {heights}")
+
+
+def elastic_launches(heights: int, leave_height: int,
+                     rejoin_height: int) -> List[int]:
+    """The verify launches a process makes a height under
+    `run_elastic_worker`'s tick schedule: one a dispatched dense slot.
+    Every height dispatches two slots (its prevote tick and its
+    precommit tick; a sleeper's are pure padding), and the readmission
+    height one more a catch-up tick."""
+    check_cycle(heights, leave_height, rejoin_height)
+    return [2 + (rejoin_height - leave_height if h == rejoin_height else 0)
+            for h in range(heights + 1)]
+
+
+def run_elastic_worker(args) -> dict:
+    """One elastic pod process: the deployment of ``pod`` mode served
+    through ElasticShard's negotiated ticks, with heterogeneous traffic
+    a host (host 0 splits each height's two vote classes across two
+    ticks while the last host submits both at once, so the staged plans
+    differ every tick and the per-tick max-merge and padding keep the
+    pod in lockstep; the final height both hosts split, so the state is
+    dumped from a quiesced pod) and one leave / rejoin cycle:
+
+      height `leave_height - 1`, its last tick: the last host latches
+          its leave;
+      height `leave_height`'s boundary: repartition; the last host
+          sleeps (its processes keep ticking, pure padding), host 0
+          takes over its ranges and holds its gossip;
+      height `rejoin_height - 1`, its last tick: the last host latches
+          its rejoin (one tick early, so that host 0's prospective view
+          holds it when the boundary tick packs the re-route);
+      height `rejoin_height`'s boundary: readmission; host 0's held
+          records re-route through that tick's frame, and catch-up ticks
+          replay them in height order before live traffic resumes.
+
+    The tick schedule is a function of the shared arguments, so every
+    process runs the same collective sequence (the lockstep contract).
+    The cycle is required (`check_cycle`) and needs a pod of two
+    hosts."""
+    _setup(args)
+    from agnes_tpu_torch.distributed.pod import initialize_pod, shutdown_pod
+
+    initialize_pod(args.init_method, args.n_processes, args.pid,
+                   device_type=args.device)
+
+    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.distributed.elastic import ElasticShard
+
+    try:
+        I, V, H = args.instances, args.validators, args.heights
+        leave_h, rejoin_h = args.leave_height, args.rejoin_height
+        check_cycle(H, leave_h, rejoin_h)
+        # heterogeneous traffic dispatches P = 2 (entry + one class) and
+        # P = 3 (entry + both): warm both, then arm; padding up to the
+        # negotiated max must never make a new shape
+        w = _start_host(args, ElasticShard, (2, 3))
+        d, shard, box, sigs = w.d, w.shard, w.box, w.sigs
+        if d.n_hosts != 2:
+            raise RuntimeError("the leave / rejoin cycle is choreographed "
+                               "for a pod of two hosts")
+        synced = [0]
+        if w.cuda:
+            # padding and the dispatch it feeds must not wait for the
+            # card: each runs under sync debug mode "error"
+            for name in ("pad_staged_to", "stage_padding",
+                         "dispatch_staged"):
+                setattr(shard.pipeline, name,
+                        _no_sync(getattr(shard.pipeline, name), synced))
+
+        me, sleeper = d.host, d.n_hosts - 1
+        lo_s, hi_s = shard.plan.instance_range(sleeper)
+        ticks: List[dict] = []
+
+        def tick(boundary: bool = False) -> None:
+            ticks.append(shard.tick(boundary=boundary))
+
+        def mine(h, typs):
+            return wire_range(I, V, w.seeds, h, shard.lo, shard.hi, typs,
+                              sigs)
+
+        launches = []
+        t0 = time.perf_counter()
+        for h in range(H + 1):
+            before = VF.LAUNCHES
+            tick(boundary=True)          # A: the height edge, a boundary
+            if h == rejoin_h:
+                # catch-up: the boundary tick re-routed the held wire to
+                # the readmitted host, which replays it height by height
+                # while host 0 ticks along with nothing staged
+                for hh in range(leave_h, rejoin_h):
+                    if me == sleeper:
+                        box["h"] = hh
+                    tick()
+            asleep = me == sleeper and leave_h <= h < rejoin_h
+            if not asleep:
+                box["h"] = h
+            hetero = h != H
+            if asleep:
+                tick()                   # B: pure padding
+            elif me == sleeper and hetero:
+                shard.submit(mine(h, (PV, PC)))
+                tick()                   # B: P = 3 (both classes)
+            else:
+                shard.submit(mine(h, (PV,)))
+                if me == 0 and leave_h <= h < rejoin_h:
+                    # the sleeper's traffic, held for its readmission
+                    shard.submit(wire_range(I, V, w.seeds, h, lo_s, hi_s,
+                                            (PV, PC), sigs))
+                tick()                   # B: P = 2 (prevotes)
+            if me == sleeper:
+                if h == leave_h - 1:
+                    shard.announce_leave()
+                if h == rejoin_h - 1:
+                    shard.announce_join()
+            if asleep or (me == sleeper and hetero):
+                tick()                   # C: padding (nothing staged)
+            else:
+                shard.submit(mine(h, (PC,)))
+                tick()                   # C: P = 2 (precommits)
+            launches.append(VF.LAUNCHES - before)
+            _progress(f"height {h}: epoch {shard.membership.view.epoch}, "
+                      f"{launches[-1]} launches")
+        for _ in range(3):               # settle, latch, gather
+            tick()
+        dt = time.perf_counter() - t0
+        rep = shard.drain()
+        rec = _finish_host(args, w, rep, 2000 + args.pid)
+        ela = rep["pod"]["elastic"]
+        rec.update({
+            "mode": "elastic",
+            "leave_height": leave_h,
+            "rejoin_height": rejoin_h,
+            "votes_per_sec": 2 * I * V * (H + 1) / dt,   # pod-wide
+            "wall_s": dt,
+            "launches_by_height": launches,
+            "launches_implied": elastic_launches(H, leave_h, rejoin_h),
+            "sync_checked_calls": synced[0],
+            "negotiation_ticks": ela["negotiation_ticks"],
+            "negotiations": ela["negotiations"],
+            "negotiation_ms": [t["negotiation_wall_s"] * 1e3
+                               for t in ticks],
+            "negotiate_ms": w.clock.negotiate_ms,
+            "pack_ms": w.clock.pack_ms,
+            "unpack_ms": w.clock.unpack_ms,
+            "ticks_dispatched": sum(t["dispatched"] for t in ticks),
+            "ticks_padded": sum(t["padded"] for t in ticks),
+            "padded_slots": ela["padded_slots"],
+            "pad_builds": ela["pad_builds"],
+            "padded_phases": ela["padded_phases"],
+            "boundaries": ela["boundaries"],
+            "membership_epoch": ela["epoch"],
+            "alive": ela["alive"],
+            "readmissions": ela["readmissions"],
+            "departures": ela["departures"],
+            "adopted_held": ela["adopted_held"],
+            "held_dropped": ela["held_dropped"],
+            "held_pending": ela["held_pending"],
+            "reroute_sent": ela["reroute_sent"],
+            "reroute_received": ela["reroute_received"],
+            "reroute_reheld": ela["reroute_reheld"],
+            "reroute_capacity": shard.reroute_capacity,
+            "frame_bytes": shard.frame_bytes,
+        })
+        return rec
+    finally:
+        shutdown_pod()
 
 
 def run_single_worker(args) -> dict:
@@ -501,8 +771,8 @@ def _die_with_parent() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m agnes_tpu_torch.distributed.smoke")
-    ap.add_argument("--mode", choices=("pod", "single", "offline"),
-                    required=True)
+    ap.add_argument("--mode", choices=("pod", "elastic", "single",
+                                       "offline"), required=True)
     ap.add_argument("--pid", type=int, default=0, help="this rank")
     ap.add_argument("--n-processes", type=int, default=2,
                     help="the world's ranks")
@@ -521,6 +791,12 @@ def main(argv=None) -> int:
                     help="validator whose votes are forged in both "
                          "classes")
     ap.add_argument("--native-admission", action="store_true")
+    ap.add_argument("--leave-height", type=int, default=None,
+                    help="elastic mode (required): the boundary height at "
+                         "which the last host departs")
+    ap.add_argument("--rejoin-height", type=int, default=None,
+                    help="elastic mode (required): the readmission "
+                         "boundary height")
     ap.add_argument("--out", required=True, help="result JSON path")
     ap.add_argument("--state-npz", default=None)
     ap.add_argument("--heartbeat", default=None)
@@ -528,7 +804,8 @@ def main(argv=None) -> int:
     _die_with_parent()
     if args.mode != "offline" and not args.init_method:
         ap.error(f"--mode {args.mode} needs --init-method")
-    run = {"pod": run_pod_worker, "single": run_single_worker,
+    run = {"pod": run_pod_worker, "elastic": run_elastic_worker,
+           "single": run_single_worker,
            "offline": run_offline_worker}[args.mode]
     try:
         rec = run(args)
@@ -566,7 +843,8 @@ class PodRun:
     def wait(self) -> dict:
         """Poll every worker until all have exited, one has failed, or
         the deadline has passed; SIGKILL the rest in the last two cases.
-        Returns {"pod": [record a rank], "single": [record a rank]?,
+        Returns {"pod": [record a rank, pod or elastic mode],
+        "single": [record a rank]?,
         "offline": record?, "paths": {tag: {...}}, "killed": bool (the
         deadline passed), "failed_first": tag?}.  A worker that died,
         or was killed, has a record with an "error" key."""
@@ -605,6 +883,8 @@ class PodRun:
                        "error": f"no result record (rc={rc}{why})"}
             if job["mode"] == "offline":
                 out["offline"] = rec
+            elif job["mode"] == "elastic":
+                out["pod"].append(rec)
             else:
                 out.setdefault(job["mode"], []).append(rec)
         return out
@@ -616,13 +896,20 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
               out_dir: str, timeout_s: float = 1200.0,
               heartbeat: bool = False, dump_state: bool = False,
               native_admission: bool = False,
+              elastic: bool = False, leave_height: Optional[int] = None,
+              rejoin_height: Optional[int] = None,
               extra_modes: Optional[List[str]] = None,
               tag: str = "pod") -> PodRun:
     """Launch a pod of `n_processes` ranks (`per_host` a host) in
     `device` mode, each its own interpreter, rendezvous by `file://` in
-    `out_dir`; `extra_modes` adds "single" (one host of `n_processes`
-    ranks, a world of its own) and "offline" (one process).  Returns at
-    once; `PodRun.wait()` bounds everything by `timeout_s`."""
+    `out_dir`; `elastic=True` serves it through ElasticShard's
+    negotiated ticks (mode ``elastic``), with the leave / rejoin cycle
+    at the given boundary heights; `extra_modes` adds "single" (one host
+    of `n_processes` ranks, a world of its own) and "offline" (one
+    process).  Returns at once; `PodRun.wait()` bounds everything by
+    `timeout_s`."""
+    if elastic:
+        check_cycle(heights, leave_height, rejoin_height)
     os.makedirs(out_dir, exist_ok=True)
     env = dict(os.environ)
     root = _repo_root()
@@ -637,7 +924,8 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
                          if dump_state else None),
                  "heartbeat": (os.path.join(out_dir,
                                             f"heartbeat.{name}.ndjson")
-                               if heartbeat and mode == "pod" else None)}
+                               if heartbeat and mode in ("pod", "elastic")
+                               else None)}
         cmd = [sys.executable, "-m", "agnes_tpu_torch.distributed.smoke",
                "--mode", mode, "--pid", str(pid),
                "--n-processes", str(world), "--device", device,
@@ -653,8 +941,11 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
             cmd += ["--state-npz", paths["npz"]]
         if paths["heartbeat"]:
             cmd += ["--heartbeat", paths["heartbeat"]]
-        if native_admission and mode == "pod":
+        if native_admission and mode in ("pod", "elastic"):
             cmd.append("--native-admission")
+        if mode == "elastic":
+            cmd += ["--leave-height", str(leave_height),
+                    "--rejoin-height", str(rejoin_height)]
         log = open(paths["log"], "w")
         proc = subprocess.Popen(cmd, stdout=log, stderr=log, env=env,
                                 cwd=root)
@@ -669,8 +960,8 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
 
     jobs = []
     rdv = rendezvous(tag)
-    jobs += [launch("pod", k, n_processes, f"{tag}{k}", rdv)
-             for k in range(n_processes)]
+    jobs += [launch("elastic" if elastic else "pod", k, n_processes,
+                    f"{tag}{k}", rdv) for k in range(n_processes)]
     for mode in (extra_modes or ()):
         if mode == "single":
             rdv = rendezvous(f"{tag}_single")

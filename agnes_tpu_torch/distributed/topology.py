@@ -16,9 +16,12 @@ Three small pieces, each testable without a process group:
   value id), framed into a fixed-size buffer so an all_gather can carry
   it (the header counts the real records, the tail is zero padding).
 * **StragglerMonitor** — per-host last-evidence ages (fed by completed
-  gathers) against a straggler age and a dead age.  `check()` raises
-  DeadHostError past the dead age: a dead host never joins another
-  all_gather, so the caller drains fail-closed instead of waiting.
+  gathers and peers' heartbeat trails) against a straggler age and a
+  dead age.  `check()` raises DeadHostError past the dead age: a dead
+  host never joins another all_gather, so the caller drains fail-closed
+  instead of waiting.  With the elastic pod's membership attached
+  (distributed/membership.py) a dead peer becomes a leave intent
+  instead, and its resumed evidence a join.
 
 Numpy and the stdlib only.
 """
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -228,9 +231,17 @@ class StragglerMonitor:
 
     Evidence is anything that proves recent progress: `beat(host)`, or
     `beat(None)` after a completed gather or barrier (an all_gather that
-    returned proves every host live).  The clock is injectable so the
-    verdicts test on a stubbed clock.  Fail-closed: a peer past the dead
-    age makes `check()` raise DeadHostError, because without a
+    returned proves every host live), or `observe_heartbeat_files` over
+    peers' heartbeat trails.  The clock is injectable so the verdicts
+    test on a stubbed clock.
+
+    A dead verdict is not permanent: fresh evidence for a host past the
+    dead age clears it and counts a `readmissions`.  With a membership
+    attached (`attach_membership`, the elastic pod) a dead peer becomes a
+    latched leave intent, applied at the next epoch boundary, and
+    `check()` returns the stragglers instead of raising; resumed evidence
+    latches the matching join.  Without one the contract stays
+    fail-closed: `check()` raises DeadHostError, because without a
     repartition protocol a dead peer hangs the next collective."""
 
     def __init__(self, n_hosts: int, host: int,
@@ -249,15 +260,56 @@ class StragglerMonitor:
         now = self._clock()
         self._last: Dict[int, float] = {h: now for h in
                                         range(self.n_hosts)}
+        self.membership = None         # a MembershipEpoch, once attached
+        self.readmissions = 0          # dead verdicts cleared by evidence
+        self._reported_dead: set = set()
+
+    def attach_membership(self, membership) -> None:
+        """Attach the elastic pod's membership: dead peers become leave
+        intents and resumed peers join intents, where check() would fail
+        closed (class docstring)."""
+        self.membership = membership
 
     def beat(self, host: Optional[int] = None,
              now: Optional[float] = None) -> None:
         """Record evidence for one host (None = every host: the
-        completed-collective case)."""
+        completed-collective case).  Evidence for a host past the dead
+        age is a recovery (`_evidence`)."""
         now = self._clock() if now is None else now
         hosts = range(self.n_hosts) if host is None else (int(host),)
         for h in hosts:
-            self._last[h] = max(self._last[h], now)
+            self._evidence(h, now, now)
+
+    def _evidence(self, h: int, t: float, now: float) -> None:
+        """Fold in one observation of host h (evidence instant `t`,
+        judged at clock instant `now`): a peer past the dead age is
+        readmitted, counted, and on an attached membership its join
+        latched.  Every evidence source goes through here."""
+        if t <= self._last[h]:
+            return
+        if h != self.host and now - self._last[h] > self.dead_after_s:
+            self.readmissions += 1
+            self._reported_dead.discard(h)
+            if self.membership is not None:
+                self.membership.note_join(h)
+        self._last[h] = t
+
+    def observe_heartbeat_files(self, paths: Sequence[Optional[str]],
+                                now: Optional[float] = None) -> None:
+        """Fold in peers' heartbeat trails: paths[h] is host h's NDJSON
+        file (None or unreadable = no new evidence).  The age is the
+        trail's last valid line's, the number a post-mortem reads
+        (utils/flightrec.last_line_age_s, wall-clock based), entered into
+        the monotonic ledger as now - age."""
+        from agnes_tpu_torch.utils.flightrec import last_line_age_s
+
+        now = self._clock() if now is None else now
+        for h, path in enumerate(paths):
+            if h >= self.n_hosts or path is None:
+                continue
+            age = last_line_age_s(path)
+            if age is not None:
+                self._evidence(h, now - age, now)
 
     def ages(self, now: Optional[float] = None) -> Dict[int, float]:
         now = self._clock() if now is None else now
@@ -278,8 +330,16 @@ class StragglerMonitor:
         """Raise DeadHostError when any peer is past the dead age; the
         (possibly empty) straggler list otherwise.  The gate before a
         pod collective: a dead peer means the next all_gather would
-        never complete."""
+        never complete.  With a membership attached each newly dead peer
+        latches a leave intent once and the stragglers are returned
+        (class docstring)."""
         gone = self.dead(now)
+        if gone and self.membership is not None:
+            for h in gone:
+                if h not in self._reported_dead:
+                    self._reported_dead.add(h)
+                    self.membership.note_leave(h)
+            return self.stragglers(now)
         if gone:
             ages = self.ages(now)
             raise DeadHostError(

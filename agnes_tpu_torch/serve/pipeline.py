@@ -63,9 +63,18 @@ ranks (distributed/): every rank runs its own pipeline over the same
 host-local traffic and dispatches its block.  A driver whose mesh has
 several ranks must carry a coordinator (`driver.coordinator`,
 distributed/pod.py), whose agree() runs before every dispatch; without
-one it is refused (NotImplementedError).  The elastic pod's padding
-primitives (`pad_staged_to`, `stage_padding`) wait for ROADMAP §1
-item 6b.
+one it is refused (NotImplementedError).
+
+Elastic padding (distributed/elastic.py): the elastic pod negotiates
+each tick's build shapes and pads every host up to the per-slot max, so
+that the dispatch agree() sees one plan under honest heterogeneity.
+`pad_staged_to` appends empty phases (and, on a dense signed build,
+all-zero cells) to a staged build; `stage_padding` stages a build of
+padding alone.  Both land only on shapes warmup launched
+(`warmup_covers`), an empty phase is a state-machine no-op, and the
+dense step masks padding cells out of its rejected count, so padding
+changes neither the state nor the warmed shape set.  Neither waits for
+the card.
 """
 
 from __future__ import annotations
@@ -217,6 +226,8 @@ class ServePipeline:
         self._pk_np: Optional[np.ndarray] = None
         # every (kind, P[, rung]) warmup() launched
         self.warmed_keys: set = set()
+        self.padded_phases = 0         # empty phases appended by pads
+        self.pad_builds = 0            # builds of padding alone staged
 
     def _span(self, name: str):
         return (self.tracer.span(name) if self.tracer is not None
@@ -472,6 +483,84 @@ class ServePipeline:
                 entry_heights=hts, n_votes=n_votes, t_first=t_first,
                 preverified=True, tick=tick))
         return True
+
+    # -- elastic padding -----------------------------------------------------
+
+    def warmup_covers(self, kind: str, n_phases: int,
+                      rung: int = 0) -> bool:
+        """True iff warmup() launched exactly this build shape: (kind,
+        total P with the entry[, lane rung]).  The elastic pod asks
+        before it dispatches a padded plan: a merged plan outside the
+        warmed set is a deployment error, never a new shape."""
+        key = (("signed", int(n_phases), int(rung)) if kind == "signed"
+               else (kind, int(n_phases)))
+        return key in self.warmed_keys
+
+    def pad_staged_to(self, st: _StagedBatch, n_phases: int) -> int:
+        """Pad one staged build up to a step sequence of `n_phases`
+        (entry included) by appending empty vote phases and, on a dense
+        signed build, all-zero cells, so that the dense lanes' leading
+        axis tracks the phase count.  Returns the phases appended (0 =
+        already that long).  Dense and unsigned builds only: a packed
+        lane build's shape carries its rung, not its P."""
+        cur = len(st.phases) + (1 if st.entry else 0)
+        extra = int(n_phases) - cur
+        if extra <= 0:
+            return 0
+        if st.lanes is not None and not self.dense:
+            raise ValueError(
+                "phase padding is defined for dense and unsigned builds "
+                "only (a packed-lane shape carries a rung, not a P)")
+        hts = (st.entry_heights if st.entry_heights is not None
+               else self.batcher.heights.copy())
+        st.phases = list(st.phases) + [self._entry_phase(hts)] * extra
+        if st.lanes is not None:
+            lanes = st.lanes
+
+            def grow(x):
+                return torch.cat([x, torch.zeros(
+                    (extra,) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device=x.device)])
+
+            st.lanes = DenseSignedPhases(pub=lanes.pub, sig=grow(lanes.sig),
+                                         blocks=grow(lanes.blocks))
+        self.padded_phases += extra
+        self._event("tick_pad", tick=st.tick, phases=extra,
+                    n_phases=int(n_phases))
+        return extra
+
+    def stage_padding(self, n_phases: int, signed: bool = True) -> int:
+        """Stage a build of padding alone: the entry, empty phases and,
+        signed and dense, all-zero cells, the very shape warmup()
+        launched for this P and a state-machine no-op on every instance.
+        What a host dispatches for a negotiated slot it has no traffic
+        for, so the pod's collectives stay in lockstep.  `n_phases` is
+        the total P, entry included, and is kept exactly: padding to
+        another P would hand agree() differing plans.  n_phases = 1
+        stages the entry alone.  Returns the tick id."""
+        if int(n_phases) < 1:
+            raise ValueError(
+                f"a padding build needs n_phases >= 1: {n_phases}")
+        hts = self.batcher.heights.copy()
+        Ps = int(n_phases) - 1
+        phases = [self._entry_phase(hts)] * Ps
+        lanes = None
+        if Ps and signed and self.pubkeys is not None and self.dense:
+            d = self.driver
+            dev = d.device
+            lanes = DenseSignedPhases(   # warmup's padding, dtype for dtype
+                pub=torch.zeros((d.V, 32), dtype=I32, device=dev),
+                sig=torch.zeros((Ps, d.I, d.V, 64), dtype=I32, device=dev),
+                blocks=torch.zeros((Ps, d.I, d.V, 1, 32), dtype=I32,
+                                   device=dev))
+        tick = self._next_tick()
+        self._event("tick_open", tick=tick, votes=0, rung=None,
+                    signed=lanes is not None, padding=True)
+        self._staged.append(_StagedBatch(
+            phases=phases, lanes=lanes, entry=True, entry_heights=hts,
+            n_votes=0, t_first=self._clock(), tick=tick))
+        self.pad_builds += 1
+        return tick
 
     # -- dispatch ------------------------------------------------------------
 

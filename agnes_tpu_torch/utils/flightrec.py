@@ -20,9 +20,9 @@ heartbeat file (twin of `agnes_tpu.utils.flightrec`).
   other's helpers (same schema, version 2).
 
 Stdlib only.  `render_postmortem` leaves out the twin's sections for
-planes the port does not have yet (the graph census, the elastic
-membership, the native admission front end), and the pod post-mortem
-the elastic pod's membership epoch (ROADMAP §1 item 6b).
+planes the port does not have (the graph census, the native admission
+front end); it keeps the elastic pod's membership trail, and the pod
+post-mortem's ranked header each host's membership epoch.
 """
 
 from __future__ import annotations
@@ -316,7 +316,8 @@ def render_postmortem(path: str,
     """Human post-mortem summary of a heartbeat file: the run, the age
     of its last line (stale past two intervals), the stage, the event
     counts, the windowed rates, the latency quantiles, the first-build
-    walls and the BLS device pairing dispatches."""
+    walls, the BLS device pairing dispatches and the elastic membership
+    trail."""
     now = time.time() if now is None else now
     lines, bad = read_heartbeat(path)
     out = [f"heartbeat {path}: {len(lines)} valid line(s), "
@@ -375,6 +376,31 @@ def render_postmortem(path: str,
         bls_disp = bls_disp or ev.get("bls_device_pairing_dispatches")
     if bls_disp:
         out.append(f"  bls device pairing: {bls_disp} dispatch(es)")
+    # the elastic membership trail: the current epoch, the readmissions
+    # and the boundary / re-lift / hold-overflow event counts, by name
+    # (the names mirror utils/metrics.py's POD_MEMBERSHIP_EPOCH /
+    # POD_HOST_READMISSIONS and ElasticShard's event kinds).  Dropped
+    # held gossip is called out: the reader must not dig for it
+    epoch = last.get("pod_membership_epoch")
+    readm = last.get("pod_host_readmissions")
+    memb = {}
+    if isinstance(ev, dict):
+        readm = readm or ev.get("pod_host_readmissions")
+        memb = {k: ev[k] for k in ("membership_boundary",
+                                   "membership_relift",
+                                   "membership_hold_overflow")
+                if ev.get(k)}
+    if isinstance(epoch, (int, float)) or readm or memb:
+        bits = []
+        if isinstance(epoch, (int, float)):
+            bits.append(f"epoch {int(epoch)}")
+        if readm:
+            bits.append(f"{int(readm)} readmission(s)")
+        bits.extend(f"{k}={v}" for k, v in sorted(memb.items()))
+        out.append("  elastic membership: " + ", ".join(bits)
+                   + (" — HELD GOSSIP DROPPED (reroute capacity "
+                      "overflow)" if memb.get(
+                          "membership_hold_overflow") else ""))
     return "\n".join(out)
 
 
@@ -408,10 +434,15 @@ def render_pod_postmortem(paths: Sequence[str],
                else f"pid {last['pid']}")
         interval = float(last.get("interval_s", 0)) or None
         stale = interval is not None and age > 2 * interval
+        ep = last.get("pod_membership_epoch")
         rows.append((
             -age,
             f"  {who}: last beat {_fmt_t(last['t'])} "
-            f"(age {age:.1f}s, {len(lines)} beats, seq {last['seq']})"
+            f"(age {age:.1f}s, {len(lines)} beats, seq {last['seq']}"
+            # hosts wedged on different membership epochs is the elastic
+            # pod's failure signature
+            + (f", epoch {int(ep)}" if isinstance(ep, (int, float))
+               else "") + ")"
             + (" — STALE: wedged/died around this time" if stale
                else " — fresh")))
     out = [f"pod heartbeat merge: {len(paths)} trail(s), oldest "

@@ -353,6 +353,15 @@ SERVE_NATIVE_SHARD_REJECTS_PREFIX = "serve_native_shard_rejects_"
 #: (counter, distributed/shard.py; the drain report's
 #: `pod.foreign_rejects`)
 POD_FOREIGN_REJECTS = "pod_foreign_rejects"
+#: the elastic pod (distributed/elastic.py): the current membership
+#: epoch (gauge, steps at each applied boundary, so a wedge's timeline
+#: shows which partition was live), the wall of a negotiated tick
+#: (histogram: stage, pack, all_gather, merge, pad, dispatch), and
+#: readmissions applied at boundaries (counter, mirrored from
+#: MembershipEpoch.readmissions)
+POD_MEMBERSHIP_EPOCH = "pod_membership_epoch"
+POD_NEGOTIATION_WALL_S = "pod_negotiation_wall_s"
+POD_HOST_READMISSIONS = "pod_host_readmissions"
 #: per-kernel first-build wall gauges, `compile_ms_<kernel>`: the port's
 #: only compile is a kernel's nvcc build (cuda_build.py)
 COMPILE_MS_PREFIX = "compile_ms_"

@@ -299,6 +299,27 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      votes/s and per tick the densify, host launch, step and kernel
      device times, the agree and decision-gather walls, the device peak
      against the dense plan and the host RSS, and the phase's wall.
+     (d) the elastic drill (`_elastic_drill`): 2 hosts x (1 x 1) through
+     `spawn_pod(elastic=True)` at the same width, heights 0-4 (the one-
+     process dense path carried on to height 4 is its reference), each
+     host given only its own block's traffic, host 0 splitting each
+     height's classes over two ticks while host 1 submits both at once,
+     host 1 leaving at height 2's boundary and rejoining at height 3's,
+     its held height replayed from host 0's re-route.  Required: the
+     host blocks == the reference leaf for leaf; the gathered decision
+     rows identical on both processes and covering every instance; 512 x
+     5 decisions a host, 2 x 512 x 5 rejected lanes, two boundaries,
+     epoch 2, one readmission, one departure; host 0 held, sent and host
+     1 received 2 x 512,000 records, none dropped or pending; padded
+     slots, no retrace, no foreign record; the verify launches a height
+     equal to the tick schedule's (`elastic_launches`), the padding and
+     dispatch calls under sync debug mode "error"; the kernel run again
+     at each process's last launch shape and equal to plain on 16
+     sampled instance rows; the merged post-mortem's `elastic
+     membership:` trail at epoch 2.  It logs per process the per-tick
+     negotiation wall, the densify, host launch, step and kernel times,
+     the launches a height against the schedule's, the pod-wide served
+     votes/s, the device peak against the dense plan and the host RSS.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -308,8 +329,9 @@ loop's launches in phase 10, and that phase's stage tables, and with
 `launches_native_serve_phase`, phase 11's launches, and its runs'
 numbers under `native_serve`, and with `launches_dense_phase`, phase
 12's launches on its paths, and its numbers under `dense`, and with
-`launches_pod_phase`, the pod processes' launches in phase 13, and its
-numbers under `pod`),
+`launches_pod_phase`, the pod processes' launches in phase 13 (a)-(c),
+and with `launches_elastic_phase`, the elastic drill's, and its numbers
+under `pod`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -355,6 +377,8 @@ DENSE_SAMPLE_ROWS = 16             # phase 12: instance rows held against plain
 MESH_JOIN_S = 600                  # phase 12: the spawned ranks' deadline
 POD_HOSTS = 2                      # phase 13: the pod's hosts
 POD_JOIN_S = 600                   # phase 13: a pod run's deadline
+ELASTIC_HEIGHTS = 4                # phase 13(d): heights after height 0
+ELASTIC_LEAVE, ELASTIC_REJOIN = 2, 3   # 13(d): host 1 away for height 2
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -3614,7 +3638,8 @@ def _pod_checks(res, per_host: int, n_hosts: int, ref: dict):
             r["foreign_rejects"] == H * 2 * (I - local) * Vn for r in recs),
         "one verify launch of 2 x local x V cells a height": all(
             r["launches_by_height"] == [1] * H and r["launches"] == H
-            and r["cells_by_dispatch"] == [cells] * H for r in recs),
+            and r["cells_by_dispatch"] == [cells] * H
+            and len(r["kernel_ms"]) == H for r in recs),
         "2 x local rejected lanes a height": all(
             r["rejected_by_height"] == [2 * local] * H for r in recs),
         "no retrace, no off-ladder build, no host fallback": all(
@@ -3687,10 +3712,16 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
     I, Vn, H = I_SIGNED, V_SIGNED, SERVE_HEIGHTS
     n_cards = torch.cuda.device_count()
 
-    # -- the one-process dense path of the same heights (the reference) ----
+    # -- the one-process dense path of the same heights (the reference),
+    #    carried on to the elastic drill's last height (its reference) ----
+    sigs = dict(sigs)
+    for h in range(H, ELASTIC_HEIGHTS + 1):
+        for typ in classes:
+            sigs[h, typ] = fx.sign_class(seeds, h, typ, VALUE,
+                                         forge_validator=FORGED)
     d = DeviceDriver(I, Vn, advance_height=True, device=dev)
     bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
-    for h in range(H):
+    for h in range(max(H, ELASTIC_HEIGHTS + 1)):
         bat.sync_device(np.zeros(I, np.int64), np.full(I, h, np.int64))
         for typ in classes:
             bat.add_arrays(*fx.full_mesh_cols(I, Vn, seeds, h, typ, VALUE,
@@ -3698,8 +3729,11 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
         phases, dense = bat.build_phases_device_dense(pubkeys)
         d.step_seq_signed_dense([d.empty_phase()] + [p for p, _ in phases],
                                 dense)
+        if h == H - 1:
+            d.collect()
+            ref = state_arrays(d)
     d.collect()
-    ref = state_arrays(d)
+    ref_elastic = state_arrays(d)
     leaves = ([ref[f"state_{f}"] for f in type(d.state)._fields]
               + [ref[f"tally_{f}"] for f in type(d.tally)._fields])
     if not (all(np.array_equal(a, b.cpu().numpy())
@@ -3789,14 +3823,145 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
         else:
             log(f"[pod c] one host of several ranks: not run: {n_cards} "
                 f"card(s); card {card}")
+
+        # -- (d) the elastic drill -----------------------------------------
+        out["pod_d"] = _elastic_drill(ref_elastic, tmp, card,
+                                      shared=n_cards < POD_HOSTS)
+        launches_d = sum(out["pod_d"]["launches"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t_phase
     log(f"[pod] phase 13 {wall:.1f} s; verify launches on its paths "
-        f"{launches} (one a height a process; warmup and sample launches "
-        f"counted apart); card {card}")
+        f"{launches} in (a)-(c) (one a height a process), {launches_d} in "
+        f"(d) (one a dispatched slot a process); warmup and sample "
+        f"launches counted apart; card {card}")
     out["pod_phase_s"] = wall
-    return {"launches_pod_phase": launches, "pod": out}
+    return {"launches_pod_phase": launches,
+            "launches_elastic_phase": launches_d, "pod": out}
+
+
+def _elastic_drill(ref: dict, tmp: str, card: str, shared: bool) -> dict:
+    """Phase 13(d): the elastic pod's leave-and-rejoin drill on the card;
+    see the module docstring.  `ref` is the one-process dense path at
+    ELASTIC_HEIGHTS.  Returns the numbers for the verify kernel's line."""
+    import numpy as np
+
+    from agnes_tpu_torch.distributed.smoke import VALUE as POD_VALUE
+    from agnes_tpu_torch.distributed.smoke import spawn_pod
+    from agnes_tpu_torch.utils.flightrec import render_pod_postmortem
+
+    I, Vn, EH = I_SIGNED, V_SIGNED, ELASTIC_HEIGHTS
+    local = I // POD_HOSTS
+    t0 = time.perf_counter()
+    res = spawn_pod(POD_HOSTS, per_host=1, n_val=1, instances=I,
+                    validators=Vn, heights=EH, forge=FORGED, device=DEVICE,
+                    out_dir=os.path.join(tmp, "d"), timeout_s=POD_JOIN_S,
+                    heartbeat=True, dump_state=True, elastic=True,
+                    leave_height=ELASTIC_LEAVE,
+                    rejoin_height=ELASTIC_REJOIN)
+    wall = time.perf_counter() - t0
+    recs = res["pod"]
+    bad = [r for r in recs if "error" in r]
+    if res["killed"] or bad:
+        logs = {t: open(p["log"]).read()[-3000:]
+                for t, p in res["paths"].items()}
+        raise AssertionError(f"elastic drill failed (killed "
+                             f"{res['killed']}): {bad}; logs {logs}")
+    blocks = _pod_blocks(res, 1, POD_HOSTS)
+    rows = [r["pod_decision_rows"] for r in recs]
+    held = 2 * local * Vn * (ELASTIC_REJOIN - ELASTIC_LEAVE)
+    surv, sleeper = recs
+    post = render_pod_postmortem(
+        [res["paths"][f"pod{k}"]["heartbeat"] for k in range(POD_HOSTS)])
+    checks = {
+        "host blocks == the one-process dense path, leaf for leaf":
+            set(blocks) == set(ref) and all(
+                np.array_equal(blocks[k], ref[k]) for k in ref),
+        "gathered rows identical and cover every instance":
+            all(x == rows[0] for x in rows)
+            and [x[0] for x in rows[0]] == list(range(I))
+            and all(x[2:] == [0, 0, POD_VALUE] for x in rows[0]),
+        "512 x 5 decisions and 2 x 512 x 5 rejected lanes a host": all(
+            r["decisions_total"] == local * (EH + 1)
+            and r["rejected_signature_device"] == 2 * local * (EH + 1)
+            for r in recs),
+        "two boundaries, epoch 2, one readmission, one departure": all(
+            (r["boundaries"], r["membership_epoch"], r["readmissions"],
+             r["departures"], r["alive"]) == (2, 2, 1, 1, [0, 1])
+            for r in recs),
+        "held == sent == received == 2 x 512,000, none dropped":
+            surv["adopted_held"] == surv["reroute_sent"]
+            == sleeper["reroute_received"] == held
+            and all(r["held_dropped"] == r["held_pending"] == 0
+                    for r in recs),
+        "padded slots, no retrace, no foreign record, no off-ladder build":
+            all(r["padded_slots"] > 0 and r["retrace_unexpected"] == 0
+                and r["foreign_rejects"] == 0 and r["offladder_builds"] == 0
+                and r["host_fallback_builds"] == 0 for r in recs),
+        "one all_gather, one pack and an unpack a host row a tick": all(
+            len(r["negotiate_ms"]) == len(r["pack_ms"])
+            == len(r["negotiation_ms"])
+            and len(r["unpack_ms"]) == POD_HOSTS * len(r["pack_ms"])
+            for r in recs),
+        "launches a height == the tick schedule's, one time each": all(
+            r["launches_by_height"] == r["launches_implied"]
+            and r["launches"] == sum(r["launches_implied"])
+            == len(r["cells_by_dispatch"]) == len(r["kernel_ms"])
+            for r in recs),
+        "padding and dispatch under sync debug mode 'error'": all(
+            r["sync_checked_calls"] >= r["dispatched_batches"] > 0
+            for r in recs),
+        "kernel at the launch shape == plain on the sampled rows": all(
+            r["sample"]["mismatches"] == 0 and r["sample"]["verdicts_right"]
+            and r["sample"]["launch_cells"] == r["cells_by_dispatch"][-1]
+            and r["sample"]["forged_cells"] * Vn == r["sample"]["cells"]
+            for r in recs),
+        "post-mortem: elastic membership trail at epoch 2":
+            "elastic membership:" in post and "epoch 2" in post
+            and "HELD GOSSIP DROPPED" not in post,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"elastic drill failed: {checks}; records "
+                             f"{recs}")
+
+    def fmt(xs):
+        return ("not measured" if xs is None
+                else "/".join(f"{x:.1f}" for x in xs))
+
+    share = (" (both processes on card 0: each time includes the other's "
+             "work)" if shared else "")
+    for r in recs:
+        log(f"[pod d] process {r['process']} host {r['host']}: pod-wide "
+            f"served votes/s={r['votes_per_sec']:.0f} (heights 0-{EH} in "
+            f"{r['wall_s']:.3f} s, the leave / rejoin cycle included); "
+            f"negotiation wall ms a tick {fmt(r['negotiation_ms'])} (frame "
+            f"{r['frame_bytes']} B a process), of which the gloo "
+            f"all_gather (negotiate) ms {fmt(r['negotiate_ms'])}, the "
+            f"frame's pack ms {fmt(r['pack_ms'])} and unpack ms (one a "
+            f"host row) {fmt(r['unpack_ms'])}; densify ms "
+            f"{fmt(r['densify_ms'])}; host launch ms {fmt(r['launch_ms'])}; "
+            f"step ms {fmt(r['step_ms'])}; kernel ms {fmt(r['kernel_ms'])} "
+            f"(cells {r['cells_by_dispatch']}); launches a height "
+            f"{r['launches_by_height']} against the schedule's "
+            f"{r['launches_implied']}; padded slots {r['padded_slots']}, "
+            f"pad builds {r['pad_builds']}, padded phases "
+            f"{r['padded_phases']}; device peak "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB against the dense plan's "
+            f"{r['plan_peak_bytes'] / 2**30:.3f}; host RSS after the drain "
+            f"{r['rss_gib']:.2f} GiB{share}; card {card}")
+    log(f"[pod d] 2 hosts x (1 x 1), heights 0-{EH}, host 1 away for "
+        f"heights {ELASTIC_LEAVE}-{ELASTIC_REJOIN - 1}: wall {wall:.1f} s "
+        f"(spawn to join); {held} records held and re-routed; every check "
+        f"held: {sorted(checks)}; card {card}")
+    keys = ("votes_per_sec", "negotiation_ms", "negotiate_ms", "pack_ms",
+            "unpack_ms", "densify_ms", "launch_ms",
+            "step_ms", "kernel_ms", "cells_by_dispatch", "launches",
+            "launches_by_height", "launches_implied", "padded_slots",
+            "peak_bytes", "rss_gib", "wall_s", "frame_bytes")
+    out = {k: [r[k] for r in recs] for k in keys}
+    out.update(plan_peak_bytes=recs[0]["plan_peak_bytes"], held=held,
+               wall_s_spawn_to_join=wall, shared_card=shared)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4480,7 +4645,7 @@ def main(argv=None) -> int:
     del lane_ref
     torch.cuda.empty_cache()
 
-    # -- phase 13: the static pod ----------------------------------------
+    # -- phase 13: the static pod and the elastic drill ------------------
     rows["ed25519_verify_signed5"].update(pod_phase(
         seeds, pubkeys, s_sigs, serve_ref, bound))
     del s_sigs, serve_ref

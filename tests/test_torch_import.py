@@ -12,7 +12,9 @@ library built from the port's own `core/native/` sources only, and the
 native admission queue and its shards, the runtime lock checker and an
 unsigned height served by the threaded host over native admission, the
 mesh and sharding layer `agnes_tpu_torch.parallel`, and the static pod
-`agnes_tpu_torch.distributed` with its worker module), and never loads
+`agnes_tpu_torch.distributed` with its worker module, and the elastic
+pod's `distributed.membership` and `distributed.elastic` with an elastic
+frame round trip), and never loads
 `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".
 """
@@ -219,6 +221,24 @@ from agnes_tpu_torch.distributed import smoke as pod_smoke  # noqa: F401
 assert HostPlan(2, 8).instance_range(1) == (4, 8)
 assert [(x.instance, x.value_id) for x in unpack_decision_frames(
     pack_decision_frame(1, [5], [-1], [0], [2], 2)[None])] == [(5, None)]
+
+import agnes_tpu_torch.distributed.elastic as ela
+import agnes_tpu_torch.distributed.membership as memb
+from agnes_tpu_torch.distributed import ElasticShard  # noqa: F401
+
+ep = memb.MembershipEpoch(2, 8)
+ep.note_leave(1)
+assert ep.boundary().transfers == ((1, 0, 4, 8),)
+slots = (memb.TickSlot(memb.KIND_DENSE_SIGNED, 3),)
+frame = ela.pack_elastic_frame(
+    1, ep.view.epoch, ep.view.alive_mask(), *ep.pending(), slots,
+    pack_decision_frame(1, [5], [7], [0], [2], 2), bytes(96),
+    max_slots=2, reroute_cap=192)
+back = ela.unpack_elastic_frame(frame, 2, 2, 192)
+assert (back.host, back.epoch, back.alive_mask, back.slots) == \
+    (1, 1, 1, slots)
+assert [(x.instance, x.value_id) for x in back.decisions] == [(5, 7)]
+assert back.reroute == bytes(96)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))

@@ -10,14 +10,21 @@ spawns, all at once and each join bounded:
   C  a native-admission pod, 2 hosts x (1 x 1);
   O  the one-device offline dense path (`build_phases_device_dense` ->
      `step_seq_signed_dense`), itself held against JAX by
-     tests/test_torch_dense_step.py.
+     tests/test_torch_dense_step.py;
+  E  the twin's tests/test_elastic_serve.py deployment: an elastic pod,
+     2 hosts x (1 x 1), at I = 4, V = 4, heights 0-4, served through
+     ElasticShard's negotiated ticks with heterogeneous traffic a host,
+     host 1 leaving at height 2's boundary and rejoining at height 3's,
+     beside its own offline path of the same heights.
 
 A's host blocks, concatenated host-major, must equal B's global arrays,
 C's and O's leaf for leaf; every rank of a host must hold the same block.
 The twin's per-host invariants carry over: no unexpected retrace, no
 off-ladder build, the foreign records screened, the decisions, the same
 gathered decision rows on every process, one host-stamped heartbeat a
-process.
+process.  E meets the twin's elastic invariants number for number (the
+held gossip, the boundaries, the readmission, the padding) and its host
+blocks equal its offline path's leaf for leaf.
 """
 
 import numpy as np
@@ -37,16 +44,22 @@ WORLDS = {"A": dict(n_processes=4, per_host=2, n_val=N_VAL,
                     heartbeat=True, extra_modes=["single", "offline"]),
           "C": dict(n_processes=2, per_host=1, n_val=1,
                     native_admission=True)}
+E_HEIGHTS, LEAVE, REJOIN = 4, 2, 3      # host 1 away for height 2
+ELASTIC = dict(n_processes=2, per_host=1, n_val=1, heights=E_HEIGHTS,
+               elastic=True, leave_height=LEAVE, rejoin_height=REJOIN,
+               heartbeat=True, extra_modes=["offline"])
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """{world: spawn_pod's result}: every world started at once, all
     bounded by one deadline of JOIN_S."""
-    runs = {name: start_pod(instances=I, validators=V, heights=HEIGHTS,
-                            device="cpu", timeout_s=JOIN_S, dump_state=True,
+    kws = {name: dict(kw, heights=HEIGHTS) for name, kw in WORLDS.items()}
+    kws["E"] = ELASTIC
+    runs = {name: start_pod(instances=I, validators=V, device="cpu",
+                            timeout_s=JOIN_S, dump_state=True,
                             out_dir=str(tmp_path_factory.mktemp(name)), **kw)
-            for name, kw in WORLDS.items()}
+            for name, kw in kws.items()}
     out = {name: run.wait() for name, run in runs.items()}
     for name, res in out.items():
         assert not res["killed"], (name, res["paths"])
@@ -162,3 +175,77 @@ def test_one_host_stamped_heartbeat_a_process(worlds):
     assert len(head) == 5
     assert sorted(ln.split(":")[0].strip() for ln in head[1:]) == \
         ["host 0", "host 0", "host 1", "host 1"]
+
+
+# -- E: the elastic pod -------------------------------------------------------
+
+def test_elastic_pod_completes_the_membership_cycle(worlds):
+    """The twin's per-host invariants of tests/test_elastic_serve.py,
+    number for number."""
+    recs = worlds["E"]["pod"]
+    assert [r["mode"] for r in recs] == ["elastic"] * N_HOSTS
+    for rec in recs:
+        assert rec["retrace_unexpected"] == 0, rec
+        assert rec["rejected_signature_device"] == 0, rec
+        assert rec["offladder_builds"] == 0, rec
+        assert rec["host_fallback_builds"] == 0, rec
+        # P = 2 and P = 3 warmed, the pad lands on nothing else
+        assert rec["warmed_shapes"] == 2, rec
+        assert rec["padded_slots"] > 0, rec
+        # the survivor holds the sleeper's ranges, it rejects nothing
+        assert rec["foreign_rejects"] == 0, rec
+        assert rec["held_dropped"] == 0 and rec["held_pending"] == 0, rec
+        assert rec["boundaries"] == 2, rec
+        assert rec["membership_epoch"] == 2, rec
+        assert rec["readmissions"] == 1, rec
+        assert rec["departures"] == 1, rec
+        assert rec["alive"] == [0, 1], rec
+        assert rec["decisions_total"] == (I // N_HOSTS) * (E_HEIGHTS + 1)
+        assert rec["pod_decisions"] == I, rec
+        assert rec["gather_failed"] is None, rec
+        # one negotiation a tick: three a height, one a catch-up tick,
+        # three to settle; one dispatch a slot the schedule implies
+        ticks = 3 * (E_HEIGHTS + 1) + (REJOIN - LEAVE) + 3
+        assert rec["negotiation_ticks"] == rec["negotiations"] == ticks
+        assert len(rec["negotiation_ms"]) == ticks
+        assert rec["launches_implied"] == [2, 2, 2, 3, 2]
+        assert len(rec["cells_by_dispatch"]) == \
+            sum(rec["launches_implied"]) == rec["dispatched_batches"]
+
+
+def test_elastic_held_gossip_flows_to_the_readmitted_host(worlds):
+    held = 2 * (I // N_HOSTS) * V * (REJOIN - LEAVE)    # both classes
+    surv, sleeper = worlds["E"]["pod"]
+    assert surv["adopted_held"] == surv["reroute_sent"] == held, surv
+    assert sleeper["reroute_received"] == held, sleeper
+    assert sleeper["adopted_held"] == sleeper["reroute_sent"] == 0
+    assert surv["reroute_reheld"] == sleeper["reroute_reheld"] == 0
+
+
+def test_elastic_decision_rows_identical(worlds):
+    rows = [rec["pod_decision_rows"] for rec in worlds["E"]["pod"]]
+    assert rows[0] == rows[1]
+    assert [r[0] for r in rows[0]] == list(range(I))
+    assert all(r[2:] == [0, 0, 7] for r in rows[0])
+
+
+def test_elastic_pod_equals_offline_dense_path(worlds):
+    res = worlds["E"]
+    _same(_host_blocks(res, 1), _npz(res, "pod_offline"),
+          "elastic pod vs one-device offline")
+    assert res["offline"]["decisions_total"] == I * (E_HEIGHTS + 1)
+
+
+def test_elastic_postmortem_shows_the_membership_trail(worlds):
+    res = worlds["E"]
+    paths = [res["paths"][f"pod{k}"]["heartbeat"] for k in range(N_HOSTS)]
+    for k, path in enumerate(paths):
+        lines, bad = read_heartbeat(path)
+        assert lines and not bad and all(ln["host_id"] == k
+                                         for ln in lines), path
+    post = render_pod_postmortem(paths)
+    head = post.split("\n\n")[0]
+    assert head.count("epoch 2)") == N_HOSTS
+    assert "elastic membership:" in post and "epoch 2" in post
+    assert "membership_boundary=2" in post and "membership_relift" in post
+    assert "HELD GOSSIP DROPPED" not in post
