@@ -12,7 +12,7 @@ run their concurrency scenarios over the discipline itself.
 Not ported yet: the twin's static half, the AST passes LOCK001-005 over
 the serve code (they report through the JAX package's
 `jaxpr_audit.Finding`); they come with the analyzers (ROADMAP §1 item
-7b).
+7b-ii).
 """
 
 from __future__ import annotations

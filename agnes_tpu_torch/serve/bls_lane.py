@@ -36,8 +36,9 @@ service's driver, registry and ladder), each MSM and pairing call is
 observed by the driver's retrace tripwire and each pairing dispatch
 leaves a flight-recorder event.  With `BlsClassTable.native_screen` set
 (a `VoteService(native_admission=True)` sets it) the fold's header
-screens run in C++ (`serve/native_admission.bls_screen`).  Not ported:
-the model checker's clone surface; the host side is numpy + stdlib."""
+screens run in C++ (`serve/native_admission.bls_screen`).  The table's
+`mc_clone` / `mc_canonical` are the admission model checker's state
+surface (analysis/admission_mc.py); the host side is numpy + stdlib."""
 
 from __future__ import annotations
 
@@ -415,6 +416,37 @@ class BlsClassTable:
             out = list(self.classes.values())
             self.classes.clear()
         return out
+
+    @property
+    def open_classes(self) -> int:
+        return len(self.classes)
+
+    # -- state-space surface (analysis/admission_mc.py) ----------------------
+
+    def mc_clone(self) -> "BlsClassTable":
+        t = type(self).__new__(type(self))
+        t.registry = self.registry
+        t.I = self.I
+        t.max_classes = self.max_classes
+        t._clock = self._clock
+        t.native_screen = self.native_screen
+        t._mu = threading.Lock()
+        with self._mu:
+            t.classes = {
+                k: AggregateClass(key=c.key, signers=c.signers.copy(),
+                                  shares=dict(c.shares),
+                                  weight=c.weight, t_first=c.t_first)
+                for k, c in self.classes.items()}
+            t.counters = dict(self.counters)
+        return t
+
+    def mc_canonical(self) -> tuple:
+        """Canonical int-only bucket content (counters excluded:
+        monotone history, as in AdmissionQueue.mc_canonical)."""
+        with self._mu:
+            return tuple(sorted(
+                (c.key, tuple(sorted(c.shares)), c.weight)
+                for c in self.classes.values()))
 
     def snapshot(self) -> dict:
         with self._mu:

@@ -16,14 +16,24 @@ The budget is the card's whole memory (`device_hbm_bytes`), with the
 lanes resident inside it.  A CPU device has no budget: callers there
 pass `hbm_bytes`.  Pure arithmetic otherwise: nothing is allocated.
 
-Waiting for a later slice: the `Deadline` / timeout half of the twin
-(the benchmark tooling, ROADMAP §1 item 7a).
+The wall-clock half: `Deadline` is an absolute budget, given or
+discovered (`Deadline.discover`: an env override, else the tightest
+enclosing coreutils `timeout N` found by walking the ancestors in
+/proc, minus its elapsed time), so a bounded run such as the model
+checker's CLI (analysis/modelcheck.py) reports a clean partial instead
+of being killed.  Waiting for the benchmark entry: the twin's
+`deadline_margin_s`, `install_deadline_signals` and the bench defaults
+of `Deadline.discover` (`env_var="AGNES_BENCH_DEADLINE_S"`,
+`default_s`); here the caller names its variable.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import math
+import os
+import time
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -253,3 +263,161 @@ def plan_lane_verify(n_lanes: int, n_blocks: int = 1,
         lanes_per_chunk=tile, resident_bytes=resident,
         chunk_bytes=tile * workspace_lane_bytes,
         hbm_bytes=hbm, safety=safety)
+
+
+# --- wall-clock deadline discovery ------------------------------------------
+
+#: how far up the process tree to look for an enclosing `timeout`
+_MAX_ANCESTOR_HOPS = 20
+
+#: suffix multipliers accepted by coreutils timeout durations
+_SUFFIX = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+
+#: timeout(1) options that consume a following argument
+_TIMEOUT_OPTS_WITH_ARG = ("-k", "--kill-after", "-s", "--signal")
+
+
+def parse_timeout_duration(tok: str) -> Optional[float]:
+    """'870' -> 870.0, '30m' -> 1800.0; None if not a duration."""
+    mult = 1.0
+    if tok and tok[-1] in _SUFFIX:
+        mult, tok = _SUFFIX[tok[-1]], tok[:-1]
+    try:
+        v = float(tok)
+    except ValueError:
+        return None
+    return v * mult if v >= 0 else None
+
+
+def parse_timeout_argv(argv: List[str]) -> Optional[float]:
+    """The duration of a coreutils `timeout` invocation's argv, or None
+    when argv is not one (or is unparseable).  Handles `-k 10 870`,
+    `--kill-after=10`, `-s TERM`, and s/m/h/d suffixes."""
+    if not argv or os.path.basename(argv[0]) != "timeout":
+        return None
+    i = 1
+    while i < len(argv):
+        a = argv[i]
+        if a.startswith("-") and a != "-":
+            if a in _TIMEOUT_OPTS_WITH_ARG:
+                i += 2
+            else:
+                i += 1  # flag (or --opt=value) without separate arg
+            continue
+        return parse_timeout_duration(a)
+    return None
+
+
+def _proc_stat_fields(pid: int) -> Optional[List[str]]:
+    """Fields of /proc/<pid>/stat AFTER the (comm) — comm may contain
+    spaces/parens, so split at the last ')'."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            raw = f.read().decode("ascii", "replace")
+    except OSError:
+        return None
+    rp = raw.rfind(")")
+    if rp < 0:
+        return None
+    return raw[rp + 1:].split()
+
+
+def _proc_ppid(pid: int) -> Optional[int]:
+    f = _proc_stat_fields(pid)
+    try:
+        return int(f[1]) if f else None      # field 4 overall
+    except (ValueError, IndexError):
+        return None
+
+
+def _proc_elapsed_s(pid: int) -> Optional[float]:
+    """Seconds since process start (start_time field vs /proc/uptime)."""
+    f = _proc_stat_fields(pid)
+    if not f or len(f) < 20:
+        return None
+    try:
+        start_ticks = float(f[19])           # field 22 overall
+        with open("/proc/uptime") as up:
+            uptime = float(up.read().split()[0])
+        tck = os.sysconf("SC_CLK_TCK")
+    except (ValueError, OSError):
+        return None
+    return max(0.0, uptime - start_ticks / tck)
+
+
+def _proc_cmdline(pid: int) -> Optional[List[str]]:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            raw = f.read()
+    except OSError:
+        return None
+    return [a.decode("utf-8", "replace")
+            for a in raw.split(b"\0") if a] or None
+
+
+def enclosing_timeout_remaining() -> Optional[float]:
+    """Walk the ancestor chain; for every `timeout N ...` wrapper found,
+    compute N minus its elapsed runtime; return the tightest remaining
+    seconds, or None when no ancestor is a timeout (or /proc is
+    unavailable — non-Linux)."""
+    best: Optional[float] = None
+    pid, hops = os.getppid(), 0
+    while pid and pid > 1 and hops < _MAX_ANCESTOR_HOPS:
+        argv = _proc_cmdline(pid)
+        if argv:
+            dur = parse_timeout_argv(argv)
+            if dur is not None:
+                elapsed = _proc_elapsed_s(pid)
+                if elapsed is not None:
+                    rem = dur - elapsed
+                    best = rem if best is None else min(best, rem)
+        pid = _proc_ppid(pid)
+        hops += 1
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class Deadline:
+    """An absolute wall-clock budget: `at` is a time.monotonic()
+    instant, or None for unbounded.  `source` records where it came
+    from, so a partial report can state it."""
+
+    at: Optional[float]
+    source: str = "none"
+
+    @classmethod
+    def none(cls) -> "Deadline":
+        return cls(at=None, source="none")
+
+    @classmethod
+    def after(cls, seconds: float, source: str = "explicit") -> "Deadline":
+        return cls(at=time.monotonic() + seconds, source=source)
+
+    @classmethod
+    def discover(cls, env_var: str) -> "Deadline":
+        """The enclosing wall-clock budget, in preference order: the
+        seconds in `env_var`; an ancestor `timeout N` found via /proc
+        (minus its elapsed time); unbounded."""
+        env = os.environ.get(env_var)
+        if env:
+            try:
+                return cls.after(float(env), source=f"env:{env_var}")
+            except ValueError:
+                pass
+        rem = enclosing_timeout_remaining()
+        if rem is not None:
+            return cls.after(max(0.0, rem), source="proc:timeout")
+        return cls.none()
+
+    def remaining(self) -> float:
+        return math.inf if self.at is None else self.at - time.monotonic()
+
+    def expired(self) -> bool:
+        return self.at is not None and self.remaining() <= 0
+
+    def cap(self, want: float, margin: float = 0.0) -> float:
+        """`want` seconds, clamped so it ends `margin` before the
+        deadline (never below 0); `want` unchanged when unbounded."""
+        if self.at is None:
+            return want
+        return max(0.0, min(want, self.remaining() - margin))

@@ -362,6 +362,23 @@ POD_FOREIGN_REJECTS = "pod_foreign_rejects"
 POD_MEMBERSHIP_EPOCH = "pod_membership_epoch"
 POD_NEGOTIATION_WALL_S = "pod_negotiation_wall_s"
 POD_HOST_READMISSIONS = "pod_host_readmissions"
+#: the bounded model checkers (analysis/modelcheck.py and the admission
+#: and membership models): distinct canonical states visited and
+#: property violations found by a scope; the measured orbit reduction
+#: of the symmetry-reduced consensus shards against their unreduced
+#: visit counts (modelcheck.SYM_BASELINE_STATES; -1 = not measured), the
+#: same for the epoch shards alone; and the state totals of the
+#: admission model, the membership model, and the consensus shards with
+#: validator-set epochs / a sleepy-churn budget.  The CLI's report
+#: carries all eight under `metrics`.
+MODELCHECK_STATES_EXPLORED = "modelcheck_states_explored"
+MODELCHECK_VIOLATIONS = "modelcheck_violations"
+MODELCHECK_SYM_ORBIT_REDUCTION = "modelcheck_sym_orbit_reduction"
+MODELCHECK_ADMISSION_STATES = "modelcheck_admission_states"
+MODELCHECK_MEMBERSHIP_STATES = "modelcheck_membership_states"
+MODELCHECK_EPOCH_STATES = "modelcheck_epoch_states"
+MODELCHECK_CHURN_STATES = "modelcheck_churn_states"
+MODELCHECK_EPOCH_ORBIT_REDUCTION = "modelcheck_epoch_orbit_reduction"
 #: per-kernel first-build wall gauges, `compile_ms_<kernel>`: the port's
 #: only compile is a kernel's nvcc build (cuda_build.py)
 COMPILE_MS_PREFIX = "compile_ms_"

@@ -320,6 +320,27 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      negotiation wall, the densify, host launch, step and kernel times,
      the launches a height against the schedule's, the pod-wide served
      votes/s, the device peak against the dense plan and the host RSS.
+  14. the model checkers' corpora (`checker_phase`): (a) every consensus
+     corpus entry (`tests/corpus/*.json`, read as data) replayed through
+     the device plane by `analysis.modelcheck.device_replay_entry(...,
+     device="cuda")`: per (node, height) the device decisions equal the
+     signed host replay's, which equals the entry's stamp, and device
+     evidence is a subset of host evidence; (b) every admission corpus
+     entry (`tests/corpus/admission/`) through a real `VoteService` on
+     the card (`analysis.admission_mc.admission_service`, the real step):
+     twice with bit-identical dispatch streams, with native admission
+     equal to Python's (stream, queue counters and canonical form, cache
+     counters), and on the CPU in the same process equal to the card's
+     (stream, rejected counts, decisions); the verify kernel's launches
+     over the card runs equal to the verifies they recorded (signed
+     dispatches and host-fallback batches), then the kernel held against
+     plain on every recorded verify's lanes, as recorded and with one bit
+     of S flipped (rejected); (c) `python -m
+     agnes_tpu_torch.analysis.modelcheck --scope tiny --json` under
+     `timeout 120`: exit 0, ok, no violation, the deadline discovered
+     from /proc.  It logs entries, nodes and heights of (a), dispatches,
+     verified dispatches, fallback batches and lanes, launches and each
+     run's seconds of (b), and the states and seconds a config of (c).
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -331,7 +352,8 @@ numbers under `native_serve`, and with `launches_dense_phase`, phase
 12's launches on its paths, and its numbers under `dense`, and with
 `launches_pod_phase`, the pod processes' launches in phase 13 (a)-(c),
 and with `launches_elastic_phase`, the elastic drill's, and its numbers
-under `pod`),
+under `pod`, and with `launches_mc_phase`, phase 14's card runs', and its
+numbers under `mc`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -3964,6 +3986,275 @@ def _elastic_drill(ref: dict, tmp: str, card: str, shared: bool) -> dict:
     return out
 
 
+def _mc_run(am, entry, device, native_admission=False):
+    """One admission corpus schedule through a real VoteService on
+    `device` (`analysis/admission_mc.admission_service`): the recorded
+    dispatch stream, the service, the decisions polled (the last poll
+    after the schedule included), the run's seconds and the inputs of
+    every verify the run asked for (signed dispatches and host-fallback
+    batches, `admission_service`'s `verifies`)."""
+    from agnes_tpu_torch.utils import budget
+
+    t = time.perf_counter()
+    cfg = am.AdmissionMCConfig.from_json(entry["config"])
+    svc, window, disp, verifies = am.admission_service(
+        cfg, device=device, native_admission=native_admission,
+        hbm_bytes=budget.device_hbm_bytes())
+    dec = am.drive_admission_service(svc, window, cfg, entry["actions"])
+    dec += svc.poll_decisions()
+    return (disp, svc, [tuple(d) for d in dec], time.perf_counter() - t,
+            verifies)
+
+
+def _mc_kernel_vs_plain(V, verifies) -> dict:
+    """Hold the verify kernel against its plain version on every
+    recorded verify's inputs, as recorded and again with bit 0 of S
+    flipped in every real lane (S stays below L, so the lane reaches
+    the kernel's check, and plain must reject it).  The recorded lanes
+    must hold some that plain accepts, so a kernel that accepts, or
+    rejects, everything disagrees with plain.  The kernel runs at each
+    recorded verify's own launch shape; plain runs once over all of
+    their lanes (each lane's verdict is independent integer math, and
+    plain on the card is launch-bound: seconds a call, whatever the
+    lanes)."""
+    import torch
+
+    cases = []
+    counts = {"dispatch": 0, "fallback": 0}
+    for kind, pub, sig, blocks, real in verifies:
+        if pub.shape[0] == 0:
+            continue
+        counts[kind] += 1
+        flipped = sig.clone()
+        flipped[:, 32] ^= real.to(flipped.dtype)
+        cases += [(kind, pub, sig, blocks, real, False),
+                  (kind, pub, flipped, blocks, real, True)]
+    got = []
+    for _k, pub, sig, blocks, _r, _f in cases:
+        args, ok_s = V.prologue(pub, sig, blocks)
+        got.append((V.verify_signed5(*args) > 0) & ok_s)
+    args, ok_s = V.prologue(*(torch.cat([c[i] for c in cases])
+                              for i in (1, 2, 3)))
+    sizes = [c[1].shape[0] for c in cases]
+    want = ((V.verify_plain(*args) > 0) & ok_s).split(sizes)
+    ok_s = ok_s.split(sizes)
+    mism = max_err = n_lanes = accepted = 0
+    for (kind, _p, _s, _b, real, is_flipped), g, w, ok in zip(
+            cases, got, want, ok_s):
+        m, e = compare(g.int(), w.int())
+        mism, max_err = mism + m, max(max_err, e)
+        if not is_flipped:
+            accepted += int(w[real].sum())
+            n_lanes += int(real.sum())
+        elif not bool(ok[real].all()) or bool(w[real].any()):
+            raise AssertionError(f"{kind} verify: a flipped signature "
+                                 f"left S >= L or was accepted")
+    if not accepted:
+        raise AssertionError("no recorded lane verifies: the kernel is "
+                             "not held on an accepted signature")
+    return {"mismatches": mism, "max_abs_err": max_err,
+            "real_lanes": n_lanes, "accepted": accepted, **counts}
+
+
+def checker_phase() -> dict:
+    """Phase 14: the model checkers' corpora on the card.  (a) Every
+    consensus corpus entry (`tests/corpus/*.json`, read as data) through
+    `analysis.modelcheck.device_replay_entry(entry, device="cuda")`: the
+    signed host network runs the schedule under trace taps and each
+    node's stream is replayed through the batcher and the fused device
+    step; per (node, height) the device decisions must equal the signed
+    host replay's, the host replay must match the entry's stamped
+    decisions, and device evidence must be a subset of host evidence.
+    (b) Every admission corpus entry (`tests/corpus/admission/`) through
+    a real `VoteService` on the card (`admission_mc.admission_service`:
+    the real `step_async`, a 1-round batcher window, the model's window
+    predictor; BLS actions have no serve counterpart and are skipped):
+    twice, the dispatch streams bit-identical; with native admission,
+    the stream, queue counters, queue canonical form and cache counters
+    equal to the Python admission's; and on the CPU in this process
+    (the plain verify), the stream, rejected counts and decisions equal
+    to the card's; the conservation and P in {2, 3} checks of the
+    model's serve replay hold, and `adm_dedup_roundtrip` dispatches
+    signed and unsigned.  The verify kernel's launches over the card
+    runs must number one a verify the runs recorded (signed dispatches
+    and host-fallback batches, `admission_service`'s `verifies`); then
+    the kernel is held against its plain version on every recorded
+    verify's inputs, as recorded and with one bit of S flipped in every
+    lane, which plain must reject.  (c) The checker's CLI on the tiny
+    scope as a subprocess under `timeout 120`: exit 0, ok, no violation,
+    the deadline discovered from /proc, states for the consensus,
+    admission and membership configs.  Returns row 1's additions."""
+    import torch
+
+    from agnes_tpu_torch.analysis import admission_mc as am
+    from agnes_tpu_torch.analysis import modelcheck as mc
+    from agnes_tpu_torch.crypto import verify as V
+
+    root = Path(__file__).resolve().parent
+    corpus = root / "tests" / "corpus"
+    t0 = time.perf_counter()
+
+    # (a) the consensus corpus through the device plane
+    entries = mc.load_corpus(str(corpus))
+    if len(entries) < 17:
+        raise AssertionError(f"consensus corpus: {len(entries)} entries")
+    nodes = heights = steps = 0
+    for entry in entries:
+        net, results = mc.device_replay_entry(entry, device=DEVICE)
+        exp = entry["expect"]["decided"]
+        exp_heights = entry["expect"].get("decided_heights")
+        for j, host_decs, rep in results:
+            ctx = f"{entry['name']} node {j}"
+            if 0 in host_decs:
+                if [host_decs[0].round, host_decs[0].value] != exp[str(j)]:
+                    raise AssertionError(f"{ctx}: the signed host replay "
+                                         f"diverged from the stamp")
+            elif str(j) in exp:
+                raise AssertionError(f"{ctx}: stamped height-0 decision "
+                                     f"not reached by the host replay")
+            host_hr = {h: [d.round, d.value]
+                       for h, d in sorted(host_decs.items())}
+            if exp_heights is not None and host_hr != {
+                    int(h): rv for h, rv in
+                    exp_heights.get(str(j), {}).items()}:
+                raise AssertionError(f"{ctx}: per-height decisions "
+                                     f"diverged from the stamp")
+            dev_hr = {h: [r, v] for h, (r, v) in rep.decisions.items()}
+            if dev_hr != host_hr:
+                raise AssertionError(f"{ctx}: device {dev_hr} != host "
+                                     f"{host_hr}")
+            host_ev = {e.validator for e in net.nodes[j].all_equivocations()}
+            if not rep.equivocators <= host_ev:
+                raise AssertionError(f"{ctx}: device evidence "
+                                     f"{rep.equivocators - host_ev} "
+                                     f"without host evidence")
+            nodes += 1
+            heights += len(host_hr)
+            steps += rep.steps
+    t_a = time.perf_counter() - t0
+    log(f"[mc] (a) {len(entries)} consensus entries, {nodes} nodes, "
+        f"{heights} (node, height) decisions, {steps} device steps: "
+        f"device == host; {t_a:.3f} s")
+
+    # (b) the admission corpus through the real VoteService
+    adm = mc.load_corpus(str(corpus / "admission"))
+    if len(adm) < 8:
+        raise AssertionError(f"admission corpus: {len(adm)} entries")
+    secs = {"card": 0.0, "card_again": 0.0, "native": 0.0, "cpu": 0.0}
+    runs = {}
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    for entry in adm:
+        a = _mc_run(am, entry, DEVICE)
+        b = _mc_run(am, entry, DEVICE)
+        n = _mc_run(am, entry, DEVICE, native_admission=True)
+        runs[entry["name"]] = (a, b, n)
+        for k, r in zip(("card", "card_again", "native"), (a, b, n)):
+            secs[k] += r[3]
+    torch.cuda.synchronize()
+    launches = V.LAUNCHES
+    # the driver's verify is unchunked: one launch a recorded verify
+    # with a lane, signed dispatch or host-fallback batch alike
+    expected = sum(1 for abn in runs.values() for r in abn
+                   for v in r[4] if v[1].shape[0] > 0)
+    n_disp = n_signed = 0
+    verifies = []
+    for entry in adm:
+        name = entry["name"]
+        (disp, svc, dec, _, ver), (disp2, _s2, dec2, _, _v2), \
+            (ndisp, nsvc, _nd, _, _nv) = runs[name]
+        verifies += ver
+        if disp != disp2 or dec != dec2:
+            raise AssertionError(f"{name}: two card runs differ")
+        if ndisp != disp or nsvc.queue.counters != svc.queue.counters \
+                or nsvc.queue.mc_canonical()[0] != \
+                svc.queue.mc_canonical()[0] \
+                or (svc.cache is not None
+                    and nsvc.cache.counters != svc.cache.counters):
+            raise AssertionError(f"{name}: native admission != Python")
+        c = _mc_run(am, entry, "cpu")
+        secs["cpu"] += c[3]
+        rejected = [(s.driver.rejected_signature_device,
+                     s.batcher.rejected_signature) for s in (svc, c[1])]
+        if c[0] != disp or rejected[0] != rejected[1] or c[2] != dec:
+            raise AssertionError(f"{name}: the CPU run != the card's")
+        if svc.pipeline.host_fallback_builds == 0 and \
+                any(p not in (2, 3) for p, _u, _b in disp):
+            raise AssertionError(f"{name}: a dispatch outside P in {{2, 3}}")
+        q = svc.queue.counters
+        accounted = (svc.pipeline.dispatched_votes + svc.queue.depth
+                     + svc.batcher.pending_votes + svc.batcher.held_votes)
+        exact = not svc.batcher._host_tally and \
+            svc.batcher.rejected_signature == 0
+        if (q["admitted"] != accounted) if exact \
+                else (q["admitted"] < accounted):
+            raise AssertionError(f"{name}: admitted {q['admitted']}, "
+                                 f"accounted {accounted}")
+        if name == "adm_dedup_roundtrip" and \
+                {u for _p, u, _b in disp} != {True, False}:
+            raise AssertionError(f"{name}: not signed and unsigned")
+        n_disp += len(disp)
+        n_signed += sum(1 for _p, u, _b in disp if not u)
+    held = _mc_kernel_vs_plain(V, verifies)
+    if launches != expected or held["dispatch"] == 0 or held["mismatches"]:
+        raise AssertionError(
+            f"admission corpus: {launches} verify launches against "
+            f"{expected} recorded verifies over the three card runs; "
+            f"{held['dispatch']} signed dispatches and {held['fallback']} "
+            f"fallback batches a run held, {held['mismatches']} lanes "
+            f"!= plain")
+    per = ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+    log(f"[mc] (b) {len(adm)} admission entries: {n_disp} dispatches a "
+        f"run ({n_signed} signed); a card run verifies {held['dispatch']} "
+        f"signed dispatches and {held['fallback']} host-fallback batches, "
+        f"{held['real_lanes']} lanes ({held['accepted']} accepted); "
+        f"{launches} verify launches over the three card runs, one a "
+        f"recorded verify; twice on the card identical, native == "
+        f"Python, CPU == card; kernel == plain on every recorded verify, "
+        f"as recorded and with S's bit 0 flipped in every lane (all "
+        f"rejected; max err {held['max_abs_err']}); seconds {per}")
+
+    # (c) the CLI on the tiny scope under an enclosing timeout
+    t = time.perf_counter()
+    out = subprocess.run(
+        ["timeout", "120", sys.executable, "-m",
+         "agnes_tpu_torch.analysis.modelcheck", "--scope", "tiny", "--json"],
+        cwd=root, capture_output=True, text=True, timeout=180)
+    t_c = time.perf_counter() - t
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"modelcheck CLI: rc {out.returncode}\n"
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    rep = json.loads(lines[-1])
+    if not (rep["ok"] and rep["complete"] and rep["violations"] == 0) \
+            or rep["deadline"]["source"] != "proc:timeout" \
+            or min(rep["consensus_states"], rep["admission_states"],
+                   rep["membership_states"]) <= 0:
+        raise AssertionError(f"modelcheck CLI report: {lines[-1][:2000]}")
+    states = ", ".join(f"{k} {r['states']} ({r['seconds']} s)"
+                       for k, r in sorted(rep["configs"].items()))
+    log(f"[mc] (c) modelcheck --scope tiny: {rep['states_explored']} states "
+        f"(consensus {rep['consensus_states']}, admission "
+        f"{rep['admission_states']}, membership "
+        f"{rep['membership_states']}), 0 violations, deadline "
+        f"{rep['deadline']}; per config {states}; CLI {rep['seconds']} s, "
+        f"subprocess {t_c:.3f} s")
+    wall = time.perf_counter() - t0
+    log(f"[mc] phase 14 {wall:.3f} s")
+    return {"launches_mc_phase": launches,
+            "mc": {"consensus_entries": len(entries), "nodes": nodes,
+                   "node_heights": heights, "device_steps": steps,
+                   "consensus_s": t_a, "admission_entries": len(adm),
+                   "dispatches": n_disp, "signed_dispatches": n_signed,
+                   "verified_dispatches": held["dispatch"],
+                   "fallback_verifies": held["fallback"],
+                   "verified_lanes": held["real_lanes"],
+                   "mismatches": held["mismatches"],
+                   "max_abs_err": held["max_abs_err"], "admission_s": secs,
+                   "cli_states": rep["states_explored"], "cli_s": t_c,
+                   "phase_s": wall}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4649,6 +4940,10 @@ def main(argv=None) -> int:
     rows["ed25519_verify_signed5"].update(pod_phase(
         seeds, pubkeys, s_sigs, serve_ref, bound))
     del s_sigs, serve_ref
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the model checkers' corpora ---------------------------
+    rows["ed25519_verify_signed5"].update(checker_phase())
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

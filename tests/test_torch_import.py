@@ -16,7 +16,8 @@ mesh and sharding layer `agnes_tpu_torch.parallel`, and the static pod
 pod's `distributed.membership` and `distributed.elastic` with an elastic
 frame round trip), and never loads
 `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
-device="cpu".
+device="cpu".  The bounded model checkers import neither either, and the
+consensus checker alone imports no torch.
 """
 
 import os
@@ -274,3 +275,44 @@ def test_port_imports_no_jax_and_runs_cpu_slice():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "PORT-OK" in r.stdout
+
+
+_CHECKERS = r"""
+import sys
+
+from agnes_tpu_torch.analysis import modelcheck as mc
+
+rep = mc.explore(mc.MCConfig(name="t", depth=4, max_round=1))
+assert rep.states > 10 and rep.complete and not rep.violations
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu", "torch"))
+assert not bad, bad
+
+from agnes_tpu_torch.analysis import admission_mc as am
+from agnes_tpu_torch.analysis import membership_mc as mm
+from agnes_tpu_torch.utils.budget import Deadline
+
+rep = am.explore_admission(am.ADMISSION_TINY[0], max_states=200)
+assert rep.states >= 200 and not rep.violations
+assert mm.explore_membership(mm.MEMBERSHIP_TINY[0]).complete
+d = Deadline.discover(env_var="AGNES_MC_TEST_UNSET")
+assert d.source == "proc:timeout" and 0 < d.remaining() <= 60, d
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
+assert not bad, bad
+print("CHECKERS-OK")
+"""
+
+
+def test_model_checkers_import_no_jax_and_consensus_no_torch():
+    """The consensus checker alone imports no torch (nor jax, nor the
+    twin); the admission and membership models and the deadline import
+    no jax and nothing of the twin; and under `timeout 60` the deadline
+    is discovered from /proc."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "AGNES_MC_TEST_UNSET")}
+    r = subprocess.run(["timeout", "60", sys.executable, "-c", _CHECKERS],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "CHECKERS-OK" in r.stdout
