@@ -20,12 +20,16 @@ launches each once, and an armed sentinel refuses anything else.
 Opt-in: `DeviceDriver(..., audit=True)` installs the sentinel on every
 dispatch path; `ServePipeline.warmup()` arms it when present.
 
-The pure-host half, `warmup_covers()`, proves statically that every
-shape the pipeline can dispatch (builds capped at the top rung, lanes
-keyed on their rung, the entry phase prepended so P is in {2, 3}) is in
-the warmup plan.  The twin's sharding key has no meaning without a mesh
-and is left out, as are its dense-mode shapes (the dense step waits for
-ROADMAP §1 item 5).
+The pure-host half, `warmup_covers()` and its finding form
+`coverage_findings()` (RET001, the lint CLI's `retrace` pass), proves
+statically that every shape the pipeline can dispatch (builds capped at
+the top rung, lanes keyed on their rung, the entry phase prepended so P
+is in {2, 3}; in dense mode one shape a phase count) is in the warmup
+plan.  `observed_shapes()` reads the same (P, rung) shapes back off a
+sentinel's observed signatures, so a run on the card can check that the
+static proof covers what it really launched.  The twin's sharding key is
+left out: the port's mesh places every step the same way, so there is
+no second placement of one shape to key on.
 """
 
 from __future__ import annotations
@@ -82,6 +86,8 @@ class RetraceSentinel:
         self.rungs: Tuple[int, ...] = ()
         self.expected: Set[Tuple] = set()
         self.unexpected: List[Tuple] = []
+        #: every (entry, signature) observed, armed or not
+        self.seen: Set[Tuple] = set()
         self._observed: Dict[str, int] = {}
         self._lock = threading.Lock()
 
@@ -114,6 +120,7 @@ class RetraceSentinel:
 
         with self._lock:
             self._observed[entry] = self._observed.get(entry, 0) + 1
+            self.seen.add((entry, sig))
             if not self.armed:
                 self._expect_locked(entry, sig)
                 return
@@ -145,32 +152,88 @@ class RetraceSentinel:
 
 # -- static warmup-coverage proof ---------------------------------------------
 
-def dispatchable_shapes(ladder, dedup: bool = False) -> Set[Tuple]:
+def dispatchable_shapes(ladder, dense: bool = False,
+                        dedup: bool = False) -> Set[Tuple]:
     """Every (P, rung) shape the serve pipeline can dispatch on the
-    signed path: builds are capped at the top rung and keyed on the
-    rung that holds them, and the entry phase makes P = 1 + {1, 2} vote classes.  With
-    `dedup` the pre-verified stream also dispatches the unsigned
-    sequence, ("unsigned", P), its builds chunked to at most two vote
-    phases (ServePipeline._stage_preverified)."""
+    signed path: builds are capped at the top rung and keyed on the rung
+    that holds them, and the entry phase makes P = 1 + {1, 2} vote
+    classes.  Dense mode's key is (P, I, V): the rung is not part of
+    it, so its slot is None.  With `dedup` the pre-verified stream also
+    dispatches the unsigned sequence, ("unsigned", P), its builds
+    chunked to at most two vote phases (ServePipeline._stage_preverified)."""
     ps = (2, 3)
-    out: Set[Tuple] = {(p, r) for p in ps for r in ladder.rungs}
+    out: Set[Tuple] = ({(p, None) for p in ps} if dense
+                       else {(p, r) for p in ps for r in ladder.rungs})
     if dedup:
         out |= {("unsigned", p) for p in ps}
     return out
 
 
-def warmup_shapes(ladder, n_phases=(2, 3), dedup: bool = False
-                  ) -> Set[Tuple]:
+def warmup_shapes(ladder, n_phases=(2, 3), dense: bool = False,
+                  dedup: bool = False) -> Set[Tuple]:
     """The shapes ServePipeline.warmup(n_phases) launches."""
     if isinstance(n_phases, int):
         n_phases = (n_phases,)
-    out: Set[Tuple] = {(p, r) for p in n_phases for r in ladder.rungs}
+    out: Set[Tuple] = ({(p, None) for p in n_phases} if dense
+                       else {(p, r) for p in n_phases
+                             for r in ladder.rungs})
     if dedup:
         out |= {("unsigned", p) for p in n_phases}
     return out
 
 
-def warmup_covers(ladder, n_phases=(2, 3), dedup: bool = False) -> bool:
+def warmup_covers(ladder, n_phases=(2, 3), dense: bool = False,
+                  dedup: bool = False) -> bool:
     """True iff every dispatchable shape is warmed."""
-    return dispatchable_shapes(ladder, dedup) <= warmup_shapes(
-        ladder, n_phases, dedup)
+    return dispatchable_shapes(ladder, dense, dedup) <= warmup_shapes(
+        ladder, n_phases, dense, dedup)
+
+
+def coverage_findings(ladder, n_phases=(2, 3), dense: bool = False,
+                      dedup: bool = False) -> List:
+    """The finding form of warmup_covers, for the lint CLI."""
+    from agnes_tpu_torch.analysis.findings import Finding
+
+    if isinstance(n_phases, int):
+        n_phases = (n_phases,)
+    missing = dispatchable_shapes(ladder, dense, dedup) - warmup_shapes(
+        ladder, n_phases, dense, dedup)
+    if not missing:
+        return []
+    return [Finding(
+        "retrace", "RET001", "ServePipeline.warmup",
+        f"dispatchable signed shapes not covered by the warmup plan "
+        f"{tuple(n_phases)}: {sorted(missing, key=repr)} — each would "
+        f"launch unwarmed mid-service")]
+
+
+#: the step entries a sentinel observes, by the shape key they map to
+_LANE_ENTRIES = ("consensus_step_seq_signed",)
+_DENSE_ENTRIES = ("consensus_step_seq_signed_dense",
+                  "sharded_step_seq_signed")
+_UNSIGNED_ENTRIES = ("consensus_step_seq", "sharded_step_seq")
+
+
+def observed_shapes(sentinel) -> Set[Tuple]:
+    """The step shapes a sentinel has seen, in dispatchable_shapes'
+    terms: (P, rung) for the packed-lane signed step, (P, None) for the
+    dense one, ("unsigned", P) for the plain sequence.  Every step
+    entry's arguments open with the state, the tally and the stacked
+    external events, whose first leaf is [P, I]; the signed step's
+    statics carry its lane rung (lane_signature).  Other entries (the
+    BLS lane's) are not step shapes and are left out."""
+    from agnes_tpu_torch.device.encoding import DeviceState
+    from agnes_tpu_torch.device.tally import TallyState
+
+    at = len(DeviceState._fields) + len(TallyState._fields)
+    out: Set[Tuple] = set()
+    with sentinel._lock:
+        seen = list(sentinel.seen)
+    for entry, (statics, leaves) in seen:
+        if entry in _LANE_ENTRIES:
+            out.add((int(leaves[at][0][0]), int(statics[1][0])))
+        elif entry in _DENSE_ENTRIES:
+            out.add((int(leaves[at][0][0]), None))
+        elif entry in _UNSIGNED_ENTRIES:
+            out.add(("unsigned", int(leaves[at][0][0])))
+    return out

@@ -175,17 +175,17 @@ class HostShard:
         so the live height is the fallback."""
         local = self.service.poll_decisions()
         inst = self.plan.to_global(
-            self.host, np.asarray([d.instance for d in local], np.int64))
+            self.host, np.asarray([d.instance for d in local], np.int64))  # lint: allow (host list -> array)
         fah = self.service.pipeline.first_advance_height
-        hts = np.asarray(
+        hts = np.asarray(  # lint: allow (host list -> array)
             [fah.get(d.instance,
                      int(self.service.batcher.heights[d.instance]))
              for d in local], np.int64)
         return pack_decision_frame(
             self.host, inst,
-            np.asarray([(d.value_id if d.value_id is not None else -1)
+            np.asarray([(d.value_id if d.value_id is not None else -1)  # lint: allow (host list -> array)
                         for d in local], np.int64),
-            np.asarray([d.round for d in local], np.int64),
+            np.asarray([d.round for d in local], np.int64),  # lint: allow (host list -> array)
             hts, self._frame_cap)
 
     def _host_rows(self, frames: np.ndarray, what: str) -> np.ndarray:

@@ -249,8 +249,8 @@ class ServePipeline:
         card; without a predictor the window is read back (a sync)."""
         if self.window_predictor is not None:
             base, hts = self.window_predictor()
-            base = np.asarray(base, np.int64)
-            hts = np.asarray(hts, np.int64)
+            base = np.asarray(base, np.int64)  # lint: allow (host predictor output)
+            hts = np.asarray(hts, np.int64)  # lint: allow (host predictor output)
         else:
             base, hts = self.driver.window()
         for i in np.nonzero(hts > self.batcher.heights)[0]:
@@ -311,7 +311,7 @@ class ServePipeline:
             slots=torch.full((I, V), NIL_ID, dtype=I32, device=dev),
             mask=torch.zeros((I, V), dtype=torch.bool, device=dev),
             height=self.batcher._to_device(
-                np.asarray(heights).astype(np.int32)))
+                np.asarray(heights).astype(np.int32)))  # lint: allow (host heights: numpy)
 
     # -- stages --------------------------------------------------------------
 

@@ -223,8 +223,9 @@ class Inbox:
         """Enqueue a wire blob; False (and counted) when full or
         closed."""
         with self._mu:
-            # the closed check and the append under one hold: a put
-            # checked outside the mutex could land after the final flush
+            # schedcheck: atomic (the closed check and the append under
+            # one hold: a put checked outside the mutex could land after
+            # the final flush)
             if self.closed or len(self._q) >= self.capacity:
                 self.dropped += 1
                 return False
@@ -238,6 +239,8 @@ class Inbox:
         happened before this call and its blob is still drainable;
         every later `put` returns False."""
         with self._mu:
+            # schedcheck: atomic (close orders every racing put against
+            # the final flush)
             self.closed = True
             self._not_empty.notify_all()
 
@@ -246,6 +249,9 @@ class Inbox:
         (None = until a blob arrives or the inbox closes); None on
         timeout or empty-after-close."""
         with self._not_empty:
+            # schedcheck: atomic (predicate and popleft under one hold:
+            # a wakeup that re-checked nothing would double-pop against
+            # a racing get)
             self._not_empty.wait_for(lambda: self._q or self.closed,
                                      timeout)
             return self._q.popleft() if self._q else None

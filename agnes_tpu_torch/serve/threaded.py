@@ -78,12 +78,19 @@ class ThreadedVoteService:
                  inbox_capacity: int = 1024,
                  idle_wait_s: float = 0.0005,
                  gauge_interval_s: float = 0.05,
-                 clock=time.monotonic):
+                 clock=time.monotonic,
+                 thread_factory=threading.Thread,
+                 sleep=time.sleep):
         self.service = service
         self.inbox = Inbox(inbox_capacity)
         self.idle_wait_s = float(idle_wait_s)
         self.gauge_interval_s = float(gauge_interval_s)
         self._clock = clock
+        #: the schedule checker's seams (analysis/schedcheck.py): a
+        #: cooperative thread factory and a logical sleep let it
+        #: serialize every yield point of these real loops; the
+        #: defaults cost one attribute read
+        self._sleep = sleep
         self._admission = threading.Lock()
         self._device = threading.Lock()
         #: native admission: the queue's handle holds its own mutexes,
@@ -111,10 +118,10 @@ class ThreadedVoteService:
         #: submit refuses) and stops the twin loop; drain() surfaces
         #: the exception in its report under "thread_failure".
         self.failure: Optional[BaseException] = None
-        self._submit_t = threading.Thread(
+        self._submit_t = thread_factory(
             target=lambda: self._guard(self._submit_loop), daemon=True,
             name="agnes-serve-submit")
-        self._dispatch_t = threading.Thread(
+        self._dispatch_t = thread_factory(
             target=lambda: self._guard(self._dispatch_loop),
             daemon=True, name="agnes-serve-dispatch")
 
@@ -276,7 +283,7 @@ class ThreadedVoteService:
             elif self._stop.is_set():
                 break          # idle AND draining: nothing left to pump
             else:
-                time.sleep(self.idle_wait_s)
+                self._sleep(self.idle_wait_s)
             now = self._clock()
             if now - win_t0 >= self.gauge_interval_s:
                 self.sample_busy_gauges(now)
@@ -341,10 +348,11 @@ class ThreadedVoteService:
         # (or were never started), so this is a quiescent section —
         # nothing can contend, and the final flush + service drain
         # need both domains at once.
-        with self._admission, self._device:
+        with self._admission, self._device:  # lockcheck: allow (quiescent: loops joined above)
             try:
-                # residue flush: every blob the inbox accepted before
-                # close() is admitted here
+                # schedcheck: atomic (residue flush: every blob the
+                # inbox accepted before close() is admitted here; the
+                # schedule checker's conservation monitor proves it)
                 while True:     # TOCTOU residue (docstring)
                     blob = self.inbox.get(timeout=0)
                     if blob is None:

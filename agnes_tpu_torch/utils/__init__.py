@@ -12,16 +12,32 @@
                   serve plane's metric names.
   flightrec.py    the flight recorder's event ring and NDJSON heartbeat.
   metrics_http.py the Prometheus `/metrics` endpoint over a registry.
+  metrics_cli.py  the heartbeat post-mortem / schema-check CLI.
+
+`checkpoint` and `tracing` import torch, so their names below resolve
+on first access (a module `__getattr__`) and importing this package
+loads no torch: the metrics CLI and the flight recorder must run on a
+box whose CUDA stack is what failed.
 """
 
-from agnes_tpu_torch.utils.checkpoint import (  # noqa: F401
-    load_batcher,
-    load_driver,
-    load_executor_into,
-    load_native_loop,
-    save_batcher,
-    save_driver,
-    save_executor,
-    save_native_loop,
-)
-from agnes_tpu_torch.utils.tracing import Tracer, span  # noqa: F401
+#: lazily exported names -> their module
+_LAZY = {
+    **{name: "agnes_tpu_torch.utils.checkpoint"
+       for name in ("load_batcher", "load_driver", "load_executor_into",
+                    "load_native_loop", "save_batcher", "save_driver",
+                    "save_executor", "save_native_loop")},
+    "Tracer": "agnes_tpu_torch.utils.tracing",
+    "span": "agnes_tpu_torch.utils.tracing",
+}
+
+
+def __getattr__(name: str):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value

@@ -379,6 +379,13 @@ MODELCHECK_MEMBERSHIP_STATES = "modelcheck_membership_states"
 MODELCHECK_EPOCH_STATES = "modelcheck_epoch_states"
 MODELCHECK_CHURN_STATES = "modelcheck_churn_states"
 MODELCHECK_EPOCH_ORBIT_REDUCTION = "modelcheck_epoch_orbit_reduction"
+#: the schedule checker (analysis/schedcheck.py): distinct complete
+#: thread schedules it executed over the real threaded serve host, and
+#: the monitor violations it found (conservation, deadlock, lock order,
+#: atomicity, busy-fraction sanity).  Its CLI report carries both under
+#: `metrics`.
+SCHEDCHECK_SCHEDULES_EXPLORED = "schedcheck_schedules_explored"
+SCHEDCHECK_VIOLATIONS = "schedcheck_violations"
 #: per-kernel first-build wall gauges, `compile_ms_<kernel>`: the port's
 #: only compile is a kernel's nvcc build (cuda_build.py)
 COMPILE_MS_PREFIX = "compile_ms_"

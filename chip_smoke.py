@@ -341,6 +341,25 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      from /proc.  It logs entries, nodes and heights of (a), dispatches,
      verified dispatches, fallback batches and lanes, launches and each
      run's seconds of (b), and the states and seconds a config of (c).
+  15. the analyzers against what the card ran (`analysis_phase`), each
+     CLI in this process through its `main(argv)`: (a) retrace: for each
+     audited serve of phases 8 and 12 (the signed serve on the ladder
+     planned at the card's memory, the BLS serve, the dense serve on the
+     mesh) `coverage_findings(ladder, n_phases=(2, 3), dedup=True)` (and
+     `dense=True` for the dense serve) is empty, and every signed shape
+     its `RetraceSentinel` observed on the card (`observed_shapes`) lies
+     in `dispatchable_shapes(ladder, dense=)`, at least one shape
+     each on the signed and the dense serve; (b) `lint_cli.main(["--pass",
+     "all", "--json"])` over this checkout: exit 0, ok, three passes;
+     (c) `schedcheck.main(["--scope", "tiny", "--max-schedules", "200",
+     "--json"])`: exit 0, no violation, 200 schedules, and
+     `torch.cuda.is_initialized()` unchanged by the call; (d)
+     `metrics_cli.main(["--check", *trails])` over the heartbeat trails
+     of phase 13 (a)'s pod processes (kept until here): exit 0, and the
+     pod render of the same trails ranks the hosts in the order
+     `_pod_checks` read from `render_pod_postmortem`.  It logs the rungs
+     and the shapes observed, each pass's seconds, the schedule count and
+     the phase's wall.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -353,7 +372,8 @@ numbers under `native_serve`, and with `launches_dense_phase`, phase
 `launches_pod_phase`, the pod processes' launches in phase 13 (a)-(c),
 and with `launches_elastic_phase`, the elastic drill's, and its numbers
 under `pod`, and with `launches_mc_phase`, phase 14's card runs', and its
-numbers under `mc`),
+numbers under `mc`, and phase 15's wall, observed shapes and pass times
+under `analysis_*`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -402,6 +422,10 @@ POD_JOIN_S = 600                   # phase 13: a pod run's deadline
 ELASTIC_HEIGHTS = 4                # phase 13(d): heights after height 0
 ELASTIC_LEAVE, ELASTIC_REJOIN = 2, 3   # 13(d): host 1 away for height 2
 CHAIN_ITERS = 60                   # phase 2d: the JAX script's iters
+#: what phase 15 reads from the earlier phases: the audited serves'
+#: (tag, ladder, dense, sentinel), none with a dedup cache, and phase
+#: 13 (a)'s kept heartbeat trails with the host order `_pod_checks` read
+ANALYSIS = {"serves": [], "trails": None, "pod_rank": None}
 KERNEL_REPS = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 P = 2**255 - 19
@@ -1791,6 +1815,8 @@ def serve_signed_phase(seeds, pubkeys, classes) -> dict:
     log(f"[serve] no sync point between the first submit and drain "
         f"(sync debug mode \"error\"); flight events {flight.counts()}")
     tick = profiled_tick(wire, pubkeys)
+    ANALYSIS["serves"].append(("phase 8 signed", ladder, False,
+                               drv.sentinel))
     # phase 11 serves the same heights and is held against this driver
     ref = {"leaves": _leaves(drv),
            "stats": {f: getattr(drv.stats, f).copy()
@@ -2059,6 +2085,8 @@ def serve_bls_phase(fix) -> dict:
     }
     if not all(checks.values()):
         raise AssertionError(f"BLS serve failed: {checks}; {snap}")
+    ANALYSIS["serves"].append(("phase 8 bls", svc.ladder, False,
+                               drv.sentinel))
     log(f"[serve bls] I={I} V={Vn} {svc.ladder.describe()}; warmup "
         f"{warmed} shapes {t_warm:.3f} s (field kernel launches mul "
         f"{warm[0]}, reduce {warm[1]}); {2 * I * Vn + 4} shares served in "
@@ -3569,6 +3597,8 @@ def _dense_serve(mesh, seeds, pubkeys, sigs, ref, classes, hbm,
     if not all(checks.values()):
         raise AssertionError(f"dense serve failed: {checks}; launches "
                              f"{serve_launches}, warm {warm_launches}")
+    ANALYSIS["serves"].append(("phase 12 dense", svc.ladder, True,
+                               drv.sentinel))
     n_votes = H * 2 * I * Vn
     log(f"[dense serve] VoteService on the NCCL 1 x 1 mesh, "
         f"{svc.ladder.describe()}, dense mode; warmup {warmed} shapes "
@@ -3631,9 +3661,11 @@ def _pod_blocks(res, per_host: int, n_hosts: int) -> dict:
             for key in blocks[0]}
 
 
-def _pod_checks(res, per_host: int, n_hosts: int, ref: dict):
+def _pod_checks(res, per_host: int, n_hosts: int, ref: dict,
+                keep: dict = None):
     """Phase 13's per-pod checks (module docstring): ({check: held?},
-    the pod's host blocks)."""
+    the pod's host blocks).  With `keep`, the heartbeat trails and the
+    host order the post-mortem ranked them in go there."""
     import numpy as np
 
     from agnes_tpu_torch.distributed.smoke import SAMPLE_ROWS
@@ -3655,6 +3687,9 @@ def _pod_checks(res, per_host: int, n_hosts: int, ref: dict):
             ln.get("host_id") == k // per_host for ln in lines))(
             read_heartbeat(p)[0]) for k, p in enumerate(hbs))
     head = render_pod_postmortem(hbs).split("\n\n")[0].splitlines()[1:]
+    if keep is not None:
+        keep["trails"] = hbs
+        keep["rank"] = [ln.split(":")[0].strip() for ln in head]
     return {
         "foreign records screened on every host": all(
             r["foreign_rejects"] == H * 2 * (I - local) * Vn for r in recs),
@@ -3796,7 +3831,8 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
             t0 = time.perf_counter()
             res = _pod_run(tag, POD_HOSTS, 1, 1, native, tmp)
             wall = time.perf_counter() - t0
-            checks, blocks = _pod_checks(res, 1, POD_HOSTS, ref)
+            keep = {}
+            checks, blocks = _pod_checks(res, 1, POD_HOSTS, ref, keep)
             if tag == "b":
                 checks["== (a), leaf for leaf"] = all(
                     np.array_equal(blocks[k], runs["a"][1][k])
@@ -3807,6 +3843,12 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
                 raise AssertionError(f"pod ({tag}) failed: {checks}; "
                                      f"records {res['pod']}")
             runs[tag] = (res, blocks)
+            if tag == "a":
+                # phase 15 reads these trails after tmp is gone
+                kept = tempfile.mkdtemp(prefix="agnes-trails-")
+                ANALYSIS["trails"] = [shutil.copy(p, kept)
+                                      for p in keep["trails"]]
+                ANALYSIS["pod_rank"] = keep["rank"]
             _pod_log(tag, res, card, shared=n_cards < POD_HOSTS)
             recs = res["pod"]
             launches += sum(r["launches"] for r in recs)
@@ -4253,6 +4295,96 @@ def checker_phase() -> dict:
                    "max_abs_err": held["max_abs_err"], "admission_s": secs,
                    "cli_states": rep["states_explored"], "cli_s": t_c,
                    "phase_s": wall}}
+
+
+def analysis_phase() -> dict:
+    """Phase 15: the analyzers against what the card ran; see the module
+    docstring.  Returns the phase's numbers for the verify kernel's
+    line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from agnes_tpu_torch.analysis import lint_cli, retrace, schedcheck
+    from agnes_tpu_torch.utils import metrics_cli
+
+    t_phase = time.perf_counter()
+
+    def cli(main_fn, argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    checks = {}
+    # -- (a) retrace: the static proof against what the sentinels saw ----
+    shapes = {}
+    for tag, ladder, dense, sentinel in ANALYSIS["serves"]:
+        seen = retrace.observed_shapes(sentinel)
+        signed = {x for x in seen if x[0] != "unsigned"}
+        checks[f"(a) {tag}: the warmup plan covers its ladder"] = \
+            retrace.coverage_findings(ladder, n_phases=(2, 3), dense=dense,
+                                      dedup=True) == []
+        checks[f"(a) {tag}: every signed shape observed is dispatchable"] \
+            = signed <= retrace.dispatchable_shapes(ladder, dense=dense)
+        shapes[tag] = sorted(seen, key=repr)
+        log(f"[analysis] (a) {tag}: rungs {list(ladder.rungs)}"
+            f"{' (dense)' if dense else ''}; {len(seen)} shapes observed "
+            f"on the card ({len(signed)} signed): {shapes[tag]}")
+    checks["(a) the signed and the dense serve observed signed shapes"] = \
+        all(any(x[0] != "unsigned" for x in shapes.get(t, ()))
+            for t in ("phase 8 signed", "phase 12 dense"))
+    # -- (b) the lint CLI over this checkout -------------------------------
+    rc, out, t_lint = cli(lint_cli.main, ["--pass", "all", "--json"])
+    lint_rep = json.loads(out.splitlines()[-1])
+    checks["(b) lint: exit 0, ok, three passes"] = (
+        rc == 0 and lint_rep["ok"]
+        and set(lint_rep["passes"]) == {"retrace", "locks", "lint"})
+    # -- (c) the schedule checker: no device work ---------------------------
+    cuda_before = torch.cuda.is_initialized()
+    rc_s, out, t_sched = cli(schedcheck.main, [
+        "--scope", "tiny", "--max-schedules", "200", "--json"])
+    sched_rep = json.loads(out.splitlines()[-1])
+    checks["(c) schedcheck: exit 0, no violation, 200 schedules, CUDA "
+           "state unchanged"] = (
+        rc_s == 0 and sched_rep["violations"] == 0
+        and sched_rep["schedules_explored"] == 200
+        and torch.cuda.is_initialized() == cuda_before)
+    # -- (d) the metrics CLI over phase 13 (a)'s heartbeat trails ----------
+    trails = ANALYSIS["trails"] or []
+    rc_m, _, t_check = cli(metrics_cli.main, ["--check", *trails])
+    _, render, _ = cli(metrics_cli.main, trails)
+    rank = [ln.split(":")[0].strip() for ln in
+            render.split("\n\n")[0].splitlines()[1:]]
+    checks["(d) metrics CLI: --check exit 0 on the pod's trails"] = \
+        bool(trails) and rc_m == 0
+    checks["(d) metrics CLI: the pod render ranks as _pod_checks did"] = \
+        bool(rank) and rank == ANALYSIS["pod_rank"]
+    if trails:
+        shutil.rmtree(os.path.dirname(trails[0]), ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    if not all(checks.values()):
+        raise AssertionError(f"analysis phase failed: {checks}; lint "
+                             f"{lint_rep['findings']}; schedcheck "
+                             f"{sched_rep['violations']}")
+    log(f"[analysis] (b) lint CLI {t_lint:.2f} s, passes " + ", ".join(
+        f"{k} {v['seconds']} s ({v['findings']} findings)"
+        for k, v in sorted(lint_rep["passes"].items())))
+    log(f"[analysis] (c) schedcheck tiny: {sched_rep['schedules_explored']} "
+        f"schedules, {sched_rep['violations']} violations, "
+        f"{t_sched:.2f} s; CUDA initialized before and after: "
+        f"{cuda_before}")
+    log(f"[analysis] (d) metrics CLI --check on {len(trails)} pod trails: "
+        f"exit {rc_m} ({t_check:.3f} s); pod render host order {rank} == "
+        f"_pod_checks' {ANALYSIS['pod_rank']}")
+    log(f"[analysis] phase 15 {wall:.1f} s; every check held: "
+        f"{len(checks)}")
+    return {"analysis_phase_s": wall, "analysis_shapes": {
+        t: [list(x) for x in v] for t, v in shapes.items()},
+        "analysis_lint_s": t_lint, "analysis_schedcheck_s": t_sched,
+        "analysis_schedules": sched_rep["schedules_explored"]}
 
 
 def main(argv=None) -> int:
@@ -4944,6 +5076,9 @@ def main(argv=None) -> int:
 
     # -- phase 14: the model checkers' corpora ---------------------------
     rows["ed25519_verify_signed5"].update(checker_phase())
+
+    # -- phase 15: the analyzers against what the card ran -----------------
+    rows["ed25519_verify_signed5"].update(analysis_phase())
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

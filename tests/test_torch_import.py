@@ -17,7 +17,9 @@ pod's `distributed.membership` and `distributed.elastic` with an elastic
 frame round trip), and never loads
 `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".  The bounded model checkers import neither either, and the
-consensus checker alone imports no torch.
+consensus checker alone imports no torch.  Nor do the analyzers (the
+schedule checker, the lint and lock passes and their CLI), and the
+metrics CLI imports no torch at all.
 """
 
 import os
@@ -316,3 +318,51 @@ def test_model_checkers_import_no_jax_and_consensus_no_torch():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "CHECKERS-OK" in r.stdout
+
+
+_ANALYZERS = r"""
+import json
+import os
+import sys
+import tempfile
+
+from agnes_tpu_torch.utils import flightrec, metrics_cli
+
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu", "torch"))
+assert not bad, bad
+with tempfile.TemporaryDirectory() as tmp:
+    hb = flightrec.Heartbeat(os.path.join(tmp, "hb.ndjson"))
+    hb.beat()
+    assert metrics_cli.main(["--check", hb.path]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu", "torch"))
+assert not bad, bad
+
+import torch
+
+from agnes_tpu_torch.analysis import lint, lint_cli, lockcheck, schedcheck
+
+r = schedcheck.run_once(schedcheck.SCOPES["tiny"][0])
+assert r.completed and not r.violations, r.violations
+assert lint.check_threads(os.getcwd()) == []
+assert lockcheck.check_source("with self._admission:\n    pass\n") == []
+assert not torch.cuda.is_initialized()
+assert lint_cli.PASSES == ("retrace", "locks", "lint")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
+assert not bad, bad
+print("ANALYZERS-OK")
+"""
+
+
+def test_analyzers_import_no_jax_and_metrics_cli_no_torch():
+    """The metrics CLI and the flight recorder load no torch (they run on
+    a box whose CUDA stack failed); the schedule checker, the lint and
+    lock passes and the lint CLI load no jax and nothing of the twin,
+    and a schedule-checker run leaves CUDA uninitialized."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _ANALYZERS], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "ANALYZERS-OK" in r.stdout
