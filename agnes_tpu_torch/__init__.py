@@ -14,3 +14,10 @@ same path (`crypto/sha512.py` <-> `crypto/sha512_jax.py`).
 """
 
 __version__ = "0.1.0"
+
+from agnes_tpu_torch.types import (  # noqa: F401
+    NIL,
+    Proposal,
+    Vote,
+    VoteType,
+)

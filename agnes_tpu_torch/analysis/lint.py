@@ -112,7 +112,7 @@ AUDITED_CAPI_MODULES = frozenset({
     # the CUDA kernels' launch wrappers (csrc/*.cu): each screens a
     # tensor's device, dtype, contiguity and shape before its pointer
     # leaves Python
-    "agnes_tpu_torch/crypto/verify.py",
+    "agnes_tpu_torch/crypto/ed25519_verify.py",
     "agnes_tpu_torch/crypto/field.py",
     "agnes_tpu_torch/crypto/ed25519_point.py",
     "agnes_tpu_torch/crypto/bls_field.py",

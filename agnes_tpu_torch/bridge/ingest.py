@@ -290,6 +290,25 @@ class VoteBatcher:
         self.add_arrays(instance, validator, height, round_, typ, value,
                         verified=np.ones(n, bool))
 
+    def add(self, vote: WireVote) -> None:
+        """Enqueue one wire vote: a one-row `add_arrays`.  A signature
+        that is not 64 bytes cannot ride the [N, 64] column, so it is
+        screened here into `rejected_malformed` (one hostile vote must
+        not fail the whole tick's build)."""
+        if vote.signature is not None and len(vote.signature) != 64:
+            self.rejected_malformed += 1
+            return
+        sig = (np.frombuffer(vote.signature, np.uint8)[None, :]
+               if vote.signature is not None else None)
+        self.add_arrays([vote.instance], [vote.validator], [vote.height],
+                        [vote.round], [int(vote.typ)],
+                        [_NIL if vote.value is None else vote.value], sig)
+
+    def extend(self, votes) -> None:
+        """`add` each vote of an iterable, in order."""
+        for v in votes:
+            self.add(v)
+
     # -- device sync ---------------------------------------------------------
 
     def sync_device(self, base_round, heights) -> None:

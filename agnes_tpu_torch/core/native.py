@@ -11,14 +11,14 @@ implementations with the same inputs:
   NativeRoundVotes              mirrors core.round_votes.RoundVotes.
   NativeValidatorSet            mirrors core.validators.ValidatorSet
                                 (address-sorted, deduped, hashable).
+  NativeProposerRotation        mirrors core.validators.ProposerRotation.
+  sha512                        host SHA-512 (C++).
   pubkey/sign/verify/verify_batch   host Ed25519 (C++, RFC 8032).
 
 `crypto.host_sign` / `host_verify` are the port's host signer and
 verifier through this module: the executor, the simulator, the
 fixtures and the configs sign with it.  Host code only; the bulk verify
-runs on the card (`crypto/ed25519.py::verify_batch`).  The twin's
-`NativeProposerRotation` and `sha512` have no caller in the port and
-are not bound.
+runs on the card (`crypto/ed25519.py::verify_batch`).
 """
 
 from __future__ import annotations
@@ -87,6 +87,11 @@ def _configure(L):
     L.ag_valset_total_power.argtypes = [ctypes.c_void_p]
     L.ag_valset_index_of.restype = ctypes.c_int64
     L.ag_valset_index_of.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    L.ag_rotation_new.restype = ctypes.c_void_p
+    L.ag_rotation_new.argtypes = [ctypes.c_void_p]
+    L.ag_rotation_free.argtypes = [ctypes.c_void_p]
+    L.ag_rotation_step.restype = ctypes.c_int64
+    L.ag_rotation_step.argtypes = [ctypes.c_void_p]
     L.ag_valset_hash.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     L.ag_valset_get.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
     L.ag_valset_update.restype = ctypes.c_int32
@@ -96,6 +101,7 @@ def _configure(L):
                                 ctypes.c_int64]
     L.ag_valset_remove.restype = ctypes.c_int32
     L.ag_valset_remove.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    L.ag_sha512.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p]
     L.ag_ed25519_pubkey.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
     L.ag_ed25519_sign.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                   ctypes.c_int64, ctypes.c_char_p]
@@ -274,7 +280,35 @@ class NativeValidatorSet:
         return bool(_lib().ag_valset_remove(self._h, pubkey))
 
 
+class NativeProposerRotation:
+    """C++ ProposerRotation: the stateful priority algorithm of
+    core.validators.ProposerRotation, so the host-native, host-Python
+    and device proposer tables name the same proposer for every
+    (height, round) slot.  The C++ side holds a non-owning pointer to
+    the validator set, so this object keeps the set alive."""
+
+    def __init__(self, vset: NativeValidatorSet):
+        L = _lib()
+        self._vset = vset                       # lifetime anchor
+        self._h = L.ag_rotation_new(vset._h)
+        self._free = L.ag_rotation_free
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._free(self._h)
+            self._h = None
+
+    def step(self) -> int:
+        return _lib().ag_rotation_step(self._h)
+
+
 # --- crypto -----------------------------------------------------------------
+
+def sha512(data: bytes) -> bytes:
+    out = ctypes.create_string_buffer(64)
+    _lib().ag_sha512(data, len(data), out)
+    return out.raw
+
 
 def pubkey(seed: bytes) -> bytes:
     if len(seed) != 32:

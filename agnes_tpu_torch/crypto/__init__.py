@@ -6,7 +6,23 @@ C++ Ed25519 of `core/native.py`, built with g++ at first use.  There is
 no fallback: a failed build raises.  RFC 8032 signatures are
 deterministic, so they equal `crypto/ed25519_ref.py`'s (the tests'
 oracle) byte for byte.
+
+The package also offers the twin's names from `ed25519_ref` (the RFC
+8032 oracle: `keypair`, `sign`, `verify`) and `encoding` (the canonical
+signing bytes).  Both import no torch: the consensus checker reaches
+this package through the host signer and must stay torch-free.
 """
+
+from agnes_tpu_torch.crypto.ed25519_ref import (  # noqa: F401
+    keypair,
+    sign,
+    verify,
+)
+from agnes_tpu_torch.crypto.encoding import (  # noqa: F401
+    VOTE_MSG_LEN,
+    proposal_signing_bytes,
+    vote_signing_bytes,
+)
 
 
 def host_sign(seed: bytes, msg: bytes) -> bytes:

@@ -4,7 +4,7 @@
 COFACTORED semantics, framework-wide (rationale: `ed25519_ref.verify`):
 A and R must decode canonically, S < L, and [8]([S]B - [k]A) == [8]R.
 The JAX twin routes to the fused Pallas kernel on the accelerator; the
-port always takes the fused path of `crypto/verify.py`: the prologue in
+port always takes the fused path of `crypto/ed25519_verify.py`: the prologue in
 plain torch ops, then `verify_signed5` (or `verify_w4`), which launches
 the hand-written CUDA kernel for tensors on the card and runs its plain
 PyTorch version for tensors on the CPU — nothing else.
@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from agnes_tpu_torch.crypto import verify as V
+from agnes_tpu_torch.crypto import ed25519_verify as V
 
 
 def verify_batch(pub: torch.Tensor, sig: torch.Tensor,

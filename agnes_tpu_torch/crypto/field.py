@@ -4,7 +4,7 @@ plus the batched power `pow_p` with its CUDA kernel.
 Representation (unchanged from the JAX twin): 20 little-endian limbs of
 13 bits (radix 2^13, 260 bits of headroom), each a SIGNED int32 kept in
 the weak range |limb| <= 8800.  Batch axes lead and the limb axis is
-last, as in the twin; `crypto/verify.py` moves the limb axis first for
+last, as in the twin; `crypto/ed25519_verify.py` moves the limb axis first for
 its kernel boundary.  Right shifts are arithmetic (torch's `>>` on
 int32), which is what makes a negative column borrow correctly.  The
 bound proofs are the twin's (its module docstring).
@@ -13,7 +13,7 @@ bound proofs are the twin's (its module docstring).
 columns with an int32 matmul against a constant matrix; PyTorch has no
 int32 matmul on the card, so `columns` lays the 20 x 20 outer product
 out skewed (row i shifted right by i) and sums the rows: the same column
-integers, then the twin's carry sequence exactly.  `crypto/verify.py`
+integers, then the twin's carry sequence exactly.  `crypto/ed25519_verify.py`
 builds its columns with the same function, limbs first.
 
 `pow_p` (x^e for a static e) launches the hand-written CUDA kernel
@@ -225,7 +225,7 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def columns(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Raw schoolbook columns (|col| < 2^31) of two limb tensors whose
     20 limbs lie along `dim` (-1: limbs last, as here; 0: limbs first, as
-    in `crypto/verify.py`): 39 columns along the same axis.  The outer
+    in `crypto/ed25519_verify.py`): 39 columns along the same axis.  The outer
     product, its row axis padded to 40 entries, flattened and re-cut at
     width 39, puts a_i b_j in column i + j of row i (zeros elsewhere); the
     rows then sum to the columns.  Three operations for any batch."""

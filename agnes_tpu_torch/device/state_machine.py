@@ -3,6 +3,8 @@
 Twin of `agnes_tpu.device.state_machine` (`apply_scalar`, vmapped as
 `apply_batch`), written with the batch axis explicit: every leaf is an
 int32 [n] tensor and one call applies one event per instance.
+`apply_scalar`, the one-instance form, is `apply_batch` on a batch of
+one, so the transition table is written once.
 
 The match expression compiles to an *arm selector*: one predicate per
 reference match arm (src/state_machine.rs:185-213) stacked into an
@@ -147,3 +149,16 @@ def apply_batch(s: DeviceState, ev: DeviceEvent
     msg_out = DeviceMessage(*[sel([cd[1][k] for cd in cands])
                               for k in range(len(DeviceMessage._fields))])
     return state_out, msg_out
+
+
+def apply_scalar(s: DeviceState, ev: DeviceEvent
+                 ) -> Tuple[DeviceState, DeviceMessage]:
+    """One instance, one event: 0-d int32 leaves in, 0-d int32 leaves
+    out (`apply_batch` on a batch of one)."""
+    def one(x):
+        return torch.as_tensor(x, dtype=I32).reshape(1)
+
+    s1, m1 = apply_batch(DeviceState(*map(one, s)),
+                         DeviceEvent(*map(one, ev)))
+    return (DeviceState(*(x[0] for x in s1)),
+            DeviceMessage(*(x[0] for x in m1)))

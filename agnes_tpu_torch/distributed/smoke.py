@@ -120,7 +120,7 @@ def plain_sample(dense, rows: int, forged: Optional[int], rng) -> dict:
     accepted"."""
     import torch
 
-    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.crypto import ed25519_verify as VF
 
     Ps, I, Vn = dense.sig.shape[:3]
     rows = min(rows, I)
@@ -173,7 +173,7 @@ class _TickClock:
     def __init__(self, driver, pipeline, coordinator, cuda: bool):
         import torch
 
-        from agnes_tpu_torch.crypto import verify as VF
+        from agnes_tpu_torch.crypto import ed25519_verify as VF
         from agnes_tpu_torch.distributed import elastic as EL
 
         self.launch_ms: List[float] = []
@@ -274,7 +274,7 @@ def _start_host(args, shard_cls, n_phases):
     import torch
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
-    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.crypto import ed25519_verify as VF
     from agnes_tpu_torch.distributed.driver import DistributedDriver
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.serve import ShapeLadder
@@ -333,7 +333,7 @@ def _finish_host(args, w, rep: dict, seed: int) -> dict:
     sample against plain (on "cuda") and the state dump."""
     import torch
 
-    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.crypto import ed25519_verify as VF
     from agnes_tpu_torch.utils import budget
     from agnes_tpu_torch.utils.metrics import RETRACE_UNEXPECTED
 
@@ -399,7 +399,7 @@ def run_pod_worker(args) -> dict:
     initialize_pod(args.init_method, args.n_processes, args.pid,
                    device_type=args.device)
 
-    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.crypto import ed25519_verify as VF
     from agnes_tpu_torch.distributed.shard import HostShard
 
     try:
@@ -541,7 +541,7 @@ def run_elastic_worker(args) -> dict:
     initialize_pod(args.init_method, args.n_processes, args.pid,
                    device_type=args.device)
 
-    from agnes_tpu_torch.crypto import verify as VF
+    from agnes_tpu_torch.crypto import ed25519_verify as VF
     from agnes_tpu_torch.distributed.elastic import ElasticShard
 
     try:

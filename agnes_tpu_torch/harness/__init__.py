@@ -10,3 +10,22 @@
 """
 
 from agnes_tpu_torch.harness.simulator import Network, NodeSpec  # noqa: F401
+from agnes_tpu_torch.harness.replay import (  # noqa: F401
+    ReplayResult,
+    replay_trace,
+    trace_network,
+)
+
+# DeviceDriver resolves on first access: it imports torch, and the
+# consensus checker imports `harness.simulator` (this package's
+# `__init__` with it) in an interpreter that must stay torch-free.
+
+
+def __getattr__(name: str):
+    if name != "DeviceDriver":
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+
+    globals()[name] = DeviceDriver
+    return DeviceDriver

@@ -119,7 +119,7 @@ def config2_verify_lanes(small: bool = False, device="cuda"):
     from agnes_tpu_torch.core.vote_executor import VoteExecutor
     from agnes_tpu_torch.crypto.ed25519 import (pack_verify_inputs,
                                                 verify_batch)
-    from agnes_tpu_torch.crypto.verify import KERNEL
+    from agnes_tpu_torch.crypto.ed25519_verify import KERNEL
     from agnes_tpu_torch.device.encoding import resolve_device
 
     dev = resolve_device(device)

@@ -209,7 +209,7 @@ def main(argv=None) -> dict:
         raise SystemExit("verify_probe: needs an NVIDIA GPU")
     from agnes_tpu_torch.crypto import ed25519
     from agnes_tpu_torch.crypto import ed25519_ref as ref
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.crypto.field import P, limbs25
 
     card = subprocess.run(

@@ -421,6 +421,12 @@ class BlsClassTable:
     def open_classes(self) -> int:
         return len(self.classes)
 
+    @property
+    def pending_shares(self) -> int:
+        """Shares folded into the open classes (each signer once)."""
+        with self._mu:
+            return sum(c.n_signers for c in self.classes.values())
+
     # -- state-space surface (analysis/admission_mc.py) ----------------------
 
     def mc_clone(self) -> "BlsClassTable":

@@ -17,8 +17,11 @@
 `checkpoint` and `tracing` import torch, so their names below resolve
 on first access (a module `__getattr__`) and importing this package
 loads no torch: the metrics CLI and the flight recorder must run on a
-box whose CUDA stack is what failed.
+box whose CUDA stack is what failed.  `Metrics` is a plain import:
+`metrics.py` is stdlib-only.
 """
+
+from agnes_tpu_torch.utils.metrics import Metrics  # noqa: F401
 
 #: lazily exported names -> their module
 _LAZY = {

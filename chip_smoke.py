@@ -360,6 +360,23 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      `_pod_checks` read from `render_pod_postmortem`.  It logs the rungs
      and the shapes observed, each pass's seconds, the schedule count and
      the phase's wall.
+  16. the public surface on the card (`surface_phase`): (a) the MSM
+     height's shape, I = 64 x V = 1,000 with validator 7 forged, as
+     128,000 `WireVote`s plus two with 10- and 65-byte signatures, fed
+     one vote at a time through `VoteBatcher.extend` (the twin's per-vote
+     wire entry), built with `build_phases_device` and stepped by
+     `DeviceDriver.step_seq_signed`; the same votes through `add_arrays`
+     beside it.  Phases, lanes, state and tally leaves, decisions and
+     rejected counts must be equal, `rejected_malformed` 2 (0 through
+     `add_arrays`), one verify launch a height, and the kernel equal to
+     plain on 16,384 sampled lanes (the forged ones among them); it logs
+     the per-vote wall beside `add_arrays`'.  (b) `apply_scalar` on one
+     instance on the card for every (step, event tag, round relation)
+     under two guard states, each against its row of one `apply_batch`
+     call.  (c) `scripts/surface.check()`: every name of the JAX package
+     the parity test checks (read as source with `ast`, never imported)
+     resolves in the port by import and `hasattr`, or stands in
+     `NOT_PORTED`; nothing is called.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -373,7 +390,8 @@ numbers under `native_serve`, and with `launches_dense_phase`, phase
 and with `launches_elastic_phase`, the elastic drill's, and its numbers
 under `pod`, and with `launches_mc_phase`, phase 14's card runs', and its
 numbers under `mc`, and phase 15's wall, observed shapes and pass times
-under `analysis_*`),
+under `analysis_*`, and with `launches_surface_phase`, phase 16's two
+heights' launches, and its walls under `surface`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -382,6 +400,7 @@ without a CUDA device, 2 outside the repository.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -1003,7 +1022,7 @@ def signed_variants(I, Vn, phases, lanes, ref) -> None:
     import numpy as np
     import torch
 
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.utils import budget
 
@@ -1078,7 +1097,7 @@ def north_star_phase(seeds, pubkeys, sigs, bound):
     import torch
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.types import VoteType
@@ -1269,7 +1288,7 @@ def checkpoint_phase(seeds, pubkeys, sigs) -> int:
                                                  verify_evidence)
     from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
     from agnes_tpu_torch.crypto import ed25519_ref as ref
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.types import VoteType
@@ -1552,7 +1571,7 @@ def serve_signed_phase(seeds, pubkeys, classes) -> dict:
     from agnes_tpu_torch.bridge.ingest import VoteBatcher, vote_messages_np
     from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
     from agnes_tpu_torch.crypto import ed25519_ref as ref
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.serve import ShapeLadder, VoteService
@@ -1937,7 +1956,7 @@ def serve_dedup_phase(seeds, pubkeys, classes, sigs, honest) -> int:
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
     from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.serve import VoteService
@@ -2114,7 +2133,7 @@ def host_plane_phase(bound) -> dict:
 
     from agnes_tpu_torch.core.executor import ConsensusExecutor
     from agnes_tpu_torch.crypto import ed25519_ref as ref
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.crypto.ed25519 import (pack_verify_inputs,
                                                 verify_batch)
     from agnes_tpu_torch.harness import configs
@@ -2376,7 +2395,7 @@ def native_ingest_phase(seeds, pubkeys, sigs, python_rate, north_rate,
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
     from agnes_tpu_torch.bridge.native_ingest import (NativeIngestLoop,
                                                       pack_wire_votes)
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.types import VoteType
@@ -2734,7 +2753,7 @@ def _sample_vs_plain(lanes, seed: int):
     import numpy as np
     import torch
 
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
 
     val = lanes.val.cpu().numpy()
     args, ok_s = V.prologue(lanes.pub, lanes.sig, lanes.blocks)
@@ -2777,7 +2796,7 @@ def native_serve_phase(seeds, pubkeys, sigs, ref) -> dict:
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
     from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.serve import VoteService, threaded_service
@@ -3096,7 +3115,7 @@ def _dense_plain_sample(dense, rng):
     verdicts right)."""
     import torch
 
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
 
     Ps, I, Vn = dense.sig.shape[:3]
     rows = torch.from_numpy(rng.choice(I, DENSE_SAMPLE_ROWS,
@@ -3150,7 +3169,7 @@ def _mesh_rank(rank: int, world: int, init_file: str, in_path: str,
     import torch
     import torch.distributed as dist
 
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.parallel import make_mesh
@@ -3239,7 +3258,7 @@ def dense_mesh_phase(seeds, pubkeys, sigs, lane_ref, north_decisions,
     import torch
     import torch.distributed as dist
 
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.parallel import make_mesh
     from agnes_tpu_torch.types import VoteType
@@ -3508,7 +3527,7 @@ def _dense_serve(mesh, seeds, pubkeys, sigs, ref, classes, hbm,
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
     from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
     from agnes_tpu_torch.serve import ShapeLadder, VoteService
@@ -3756,7 +3775,7 @@ def pod_phase(seeds, pubkeys, sigs, serve_ref, bound) -> dict:
     import torch
 
     from agnes_tpu_torch.bridge.ingest import VoteBatcher
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
     from agnes_tpu_torch.distributed.smoke import state_arrays
     from agnes_tpu_torch.harness import fixtures as fx
     from agnes_tpu_torch.harness.device_driver import DeviceDriver
@@ -4130,7 +4149,7 @@ def checker_phase() -> dict:
 
     from agnes_tpu_torch.analysis import admission_mc as am
     from agnes_tpu_torch.analysis import modelcheck as mc
-    from agnes_tpu_torch.crypto import verify as V
+    from agnes_tpu_torch.crypto import ed25519_verify as V
 
     root = Path(__file__).resolve().parent
     corpus = root / "tests" / "corpus"
@@ -4387,6 +4406,167 @@ def analysis_phase() -> dict:
         "analysis_schedules": sched_rep["schedules_explored"]}
 
 
+def surface_phase(seeds, pubkeys, sigs) -> dict:
+    """Phase 16: the public surface on the card; see the module
+    docstring.  Returns the phase's numbers for the verify kernel's
+    line."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge import VoteBatcher, WireVote
+    from agnes_tpu_torch.core.state_machine import EventTag, Step
+    from agnes_tpu_torch.crypto import ed25519_verify as V
+    from agnes_tpu_torch.device import (DeviceEvent, DeviceState,
+                                        apply_batch, apply_scalar)
+    from agnes_tpu_torch.harness import DeviceDriver
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.scripts import surface
+    from agnes_tpu_torch.types import VoteType
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    I, Vn = I_MSM, V_SIGNED
+    checks = {}
+    # -- (a) a signed height fed one vote at a time ------------------------
+    cols = [fx.full_mesh_cols(I, Vn, seeds, 0, typ, VALUE, sigs=sigs[c])
+            for c, typ in enumerate((int(VoteType.PREVOTE),
+                                     int(VoteType.PRECOMMIT)))]
+    t0 = time.perf_counter()
+    wires = [WireVote(i, v, h, r, VoteType(t), x, g.tobytes())
+             for c in cols
+             for i, v, h, r, t, x, g in zip(*(a.tolist() for a in c[:6]),
+                                            c[6])]
+    wires += [WireVote(0, 0, 0, 0, VoteType.PREVOTE, VALUE, b"\x01" * n)
+              for n in (10, 65)]
+    t_wires = time.perf_counter() - t0
+
+    def height(feed):
+        """One height through `feed(batcher)`, build_phases_device and
+        step_seq_signed, with the verify launches of this run alone."""
+        torch.cuda.synchronize()
+        V.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bat = VoteBatcher(I, Vn, n_slots=4, device=dev)
+        feed(bat)
+        t_add = time.perf_counter() - t0
+        phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+        t_build = time.perf_counter() - t0 - t_add
+        drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases],
+                            lanes)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t1
+        return dict(bat=bat, phases=phases, lanes=lanes, drv=drv,
+                    launches=V.LAUNCHES, add=t_add, build=t_build,
+                    step=t_step, wall=time.perf_counter() - t0)
+
+    def bulk(bat):
+        for c in cols:
+            bat.add_arrays(*c)
+
+    per = height(lambda bat: bat.extend(wires))
+    ref = height(bulk)
+    n_lanes = 2 * I * Vn
+    checks["(a) both builds took the device-verify path"] = (
+        per["lanes"] is not None and ref["lanes"] is not None
+        and len(per["phases"]) == len(ref["phases"]) == 2)
+    checks["(a) phases equal leaf for leaf"] = all(
+        pn == rn and all(torch.equal(x, y) for x, y in zip(pp, rp))
+        for (pp, pn), (rp, rn) in zip(per["phases"], ref["phases"]))
+    checks["(a) lanes equal leaf for leaf"] = checks[
+        "(a) both builds took the device-verify path"] and all(
+        torch.equal(x, y) for x, y in zip(per["lanes"], ref["lanes"]))
+    checks["(a) state and tally equal leaf for leaf"] = _same_leaves(
+        _leaves(per["drv"]), _leaves(ref["drv"]))
+    decs = [_decisions(h["drv"], h["bat"].decode_slot) for h in (per, ref)]
+    checks["(a) decisions equal, every instance decided value 7 in "
+           "round 0"] = (_same_decisions(*decs) and bool(decs[0][0].all())
+                         and set(decs[0][1].tolist()) == {VALUE}
+                         and not decs[0][2].any())
+    checks["(a) rejected == 2I on both"] = (
+        per["drv"].rejected_signature_device
+        == ref["drv"].rejected_signature_device == 2 * I)
+    checks["(a) rejected_malformed 2 per vote, 0 through add_arrays"] = (
+        per["bat"].rejected_malformed == 2
+        and ref["bat"].rejected_malformed == 0)
+    checks["(a) one verify launch a height"] = \
+        per["launches"] == ref["launches"] == 1
+    # the kernel against its plain version on a sample of the lanes
+    lanes = per["lanes"]
+    idx = torch.from_numpy(np.random.RandomState(SEED).choice(
+        n_lanes, N_SERVE_SAMPLE, replace=False)).to(dev)
+    idx[:2] = torch.tensor([FORGED, Vn + FORGED], device=dev)
+    args, _ = V.prologue(lanes.pub[idx], lanes.sig[idx], lanes.blocks[idx])
+    mism, max_err = compare(V.verify_signed5(*args), V.verify_plain(*args))
+    checks["(a) kernel == plain on the sampled lanes"] = mism == 0
+    # -- (b) apply_scalar against apply_batch's rows ---------------------
+    t0 = time.perf_counter()
+    cases = []
+    for step, tag, rel, locked in itertools.product(
+            Step, EventTag, (-1, 0, 1), (False, True)):
+        lr, lv = (1, 9) if locked else (-1, -1)
+        pol = 1 if tag == EventTag.PROPOSAL else -1
+        cases.append(((2, int(step), lr, lv, lr, lv, 3),
+                      (int(tag), 2 + rel, 7, pol)))
+    st_b, ev_b = (torch.tensor(list(zip(*col)), dtype=torch.int32,
+                               device=dev) for col in zip(*cases))
+    bs, bm = apply_batch(DeviceState(*st_b), DeviceEvent(*ev_b))
+    want = torch.stack([*bs, *bm], dim=1)
+    got = torch.stack([torch.stack([*s1, *m1]) for s1, m1 in (
+        apply_scalar(DeviceState(*st_b[:, k]), DeviceEvent(*ev_b[:, k]))
+        for k in range(len(cases)))])
+    n_bad = int((got != want).any(dim=1).sum())
+    t_scalar = time.perf_counter() - t0
+    checks[f"(b) apply_scalar == apply_batch on {len(cases)} (step, tag, "
+           f"round relation, guard) cases"] = n_bad == 0 and \
+        got.device.type == "cuda"
+    # -- (c) every name the parity test checks resolves here --------------
+    t0 = time.perf_counter()
+    rep = surface.check()
+    t_names = time.perf_counter() - t0
+    checks["(c) every twin name resolves or stands in NOT_PORTED"] = (
+        rep["missing"] == [] and rep["stale"] == {})
+    wall = time.perf_counter() - t_phase
+    if not all(checks.values()):
+        raise AssertionError(f"surface phase failed: {checks}; "
+                             f"missing {rep['missing']}, stale "
+                             f"{rep['stale']}, apply_scalar {n_bad} bad")
+    n_wire = len(wires)
+    log(f"[surface] (a) I={I} V={Vn}: {n_wire} WireVotes made in "
+        f"{t_wires:.3f} s; one at a time: extend {per['add']:.3f} s "
+        f"({per['add'] / n_wire * 1e6:.2f} us a vote), build_phases_device "
+        f"{per['build']:.3f} s, step {per['step']:.3f} s, wall "
+        f"{per['wall']:.3f} s; add_arrays: {ref['add']:.3f} s, "
+        f"build_phases_device {ref['build']:.3f} s, step {ref['step']:.3f} "
+        f"s, wall {ref['wall']:.3f} s; rejected "
+        f"{per['drv'].rejected_signature_device}, malformed "
+        f"{per['bat'].rejected_malformed}; launches {per['launches']} + "
+        f"{ref['launches']}; kernel == plain on {N_SERVE_SAMPLE} lanes")
+    log(f"[surface] (b) apply_scalar == apply_batch on {len(cases)} cases "
+        f"on the card, {t_scalar:.3f} s")
+    log(f"[surface] (c) {rep['modules']} twin modules, {rep['names']} "
+        f"names: {rep['names'] - rep['excluded']} resolve in the port, "
+        f"{rep['excluded']} stand in NOT_PORTED ({len(surface.NOT_PORTED)}"
+        f" entries), 0 missing; {t_names:.2f} s")
+    log(f"[surface] phase 16 {wall:.1f} s; every check held: {len(checks)}")
+    return {"launches_surface_phase": per["launches"] + ref["launches"],
+            "surface": {
+                "wire_votes": n_wire, "wires_s": t_wires,
+                "per_vote_extend_s": per["add"],
+                "per_vote_build_s": per["build"],
+                "per_vote_step_s": per["step"],
+                "per_vote_wall_s": per["wall"],
+                "add_arrays_s": ref["add"], "add_arrays_build_s":
+                ref["build"], "add_arrays_step_s": ref["step"],
+                "add_arrays_wall_s": ref["wall"],
+                "sample_lanes": N_SERVE_SAMPLE, "sample_max_abs_err": max_err,
+                "apply_scalar_cases": len(cases), "apply_scalar_s": t_scalar,
+                "twin_names": rep["names"], "not_ported": rep["excluded"],
+                "names_s": t_names, "phase_s": wall}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4414,7 +4594,7 @@ def main(argv=None) -> int:
         from agnes_tpu_torch.crypto import field as F
         from agnes_tpu_torch.crypto import bls_field as BF
         from agnes_tpu_torch.crypto import msm as M
-        from agnes_tpu_torch.crypto import verify as V
+        from agnes_tpu_torch.crypto import ed25519_verify as V
         from agnes_tpu_torch.harness import fixtures as fx
         from agnes_tpu_torch.harness.device_driver import DeviceDriver
         from agnes_tpu_torch.scripts import bls_fp_probe
@@ -5079,6 +5259,10 @@ def main(argv=None) -> int:
 
     # -- phase 15: the analyzers against what the card ran -----------------
     rows["ed25519_verify_signed5"].update(analysis_phase())
+
+    # -- phase 16: the public surface on the card ------------------------
+    rows["ed25519_verify_signed5"].update(surface_phase(seeds, pubkeys,
+                                                        sigs))
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

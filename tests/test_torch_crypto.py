@@ -25,7 +25,7 @@ from agnes_tpu.crypto import sha512_jax as jsha
 from agnes_tpu_torch.crypto import ed25519
 from agnes_tpu_torch.crypto import ed25519_ref as ref
 from agnes_tpu_torch.crypto import scalar, sha512
-from agnes_tpu_torch.crypto import verify as V
+from agnes_tpu_torch.crypto import ed25519_verify as V
 from agnes_tpu_torch.harness.fixtures import adversarial_grid, torsioned_sig
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 

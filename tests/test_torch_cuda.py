@@ -23,7 +23,7 @@ import torch
 from agnes_tpu_torch.bridge.ingest import VoteBatcher
 from agnes_tpu_torch.crypto import ed25519
 from agnes_tpu_torch.crypto import ed25519_ref as ref
-from agnes_tpu_torch.crypto import verify as V
+from agnes_tpu_torch.crypto import ed25519_verify as V
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
 

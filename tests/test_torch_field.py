@@ -153,7 +153,7 @@ def test_pow_least_counts_follow_their_chains(tail, e):
 
 
 def test_columns_limbs_first_equals_limbs_last():
-    """`columns` gives the same integers in both layouts (crypto/verify.py
+    """`columns` gives the same integers in both layouts (crypto/ed25519_verify.py
     uses limbs first), and they are the schoolbook's."""
     rng = np.random.RandomState(11)
     a = torch.from_numpy(rng.randint(-8800, 8801, (6, 20)).astype(np.int32))

@@ -14,12 +14,17 @@ unsigned height served by the threaded host over native admission, the
 mesh and sharding layer `agnes_tpu_torch.parallel`, and the static pod
 `agnes_tpu_torch.distributed` with its worker module, and the elastic
 pod's `distributed.membership` and `distributed.elastic` with an elastic
-frame round trip), and never loads
+frame round trip), and every name the twin's packages export (the
+package-level `types`, `crypto`, `device`, `bridge`, `harness`,
+`analysis` and `utils` names, the lazy ones resolved), and never loads
 `jax` or any `agnes_tpu` module.  Without a GPU its entry points refuse to run unless given
 device="cpu".  The bounded model checkers import neither either, and the
-consensus checker alone imports no torch.  Nor do the analyzers (the
-schedule checker, the lint and lock passes and their CLI), and the
-metrics CLI imports no torch at all.
+consensus checker alone imports no torch, nor do the package names
+it reaches through `harness` (the replay's), `crypto` (the oracle's and
+the signing bytes') and `analysis` (the finding and retrace records).
+Nor do the analyzers (the schedule checker, the lint and lock passes and
+their CLI), and the metrics CLI, `agnes_tpu_torch.utils.Metrics` and the
+package-level types import no torch at all.
 """
 
 import os
@@ -243,6 +248,35 @@ assert (back.host, back.epoch, back.alive_mask, back.slots) == \
 assert [(x.instance, x.value_id) for x in back.decisions] == [(5, 7)]
 assert back.reroute == bytes(96)
 
+from agnes_tpu_torch import NIL, Proposal  # noqa: F401
+from agnes_tpu_torch import Vote as PkgVote, VoteType as PkgVoteType
+from agnes_tpu_torch.analysis import (Finding, RetraceError,  # noqa: F401
+                                      RetraceSentinel, signature)
+from agnes_tpu_torch.bridge import (DeviceEvidence, SlotMap,  # noqa: F401
+                                    ValueTable, WireVote, verify_evidence)
+from agnes_tpu_torch.bridge import VoteBatcher as PkgBatcher
+from agnes_tpu_torch.bridge import collect_device_evidence as pkg_cde
+from agnes_tpu_torch.crypto import (VOTE_MSG_LEN, keypair,  # noqa: F401
+                                    proposal_signing_bytes, sign, verify,
+                                    vote_signing_bytes)
+from agnes_tpu_torch.device import (DeviceEvent, DeviceMessage,  # noqa: F401
+                                    DeviceState, apply_batch, apply_scalar)
+from agnes_tpu_torch.harness import DeviceDriver as PkgDriver
+from agnes_tpu_torch.harness import (ReplayResult,  # noqa: F401
+                                     replay_trace as pkg_replay,
+                                     trace_network as pkg_tap)
+from agnes_tpu_torch.utils import Metrics
+
+assert (PkgVote, PkgVoteType, PkgBatcher, pkg_cde, PkgDriver, pkg_replay,
+        pkg_tap) == (Vote, VoteType, VoteBatcher, collect_device_evidence,
+                     DeviceDriver, replay_trace, trace_network)
+assert isinstance(rep, ReplayResult) and isinstance(Metrics(), Metrics)
+assert VOTE_MSG_LEN == len(vote_signing_bytes(0, 0, 0, None))
+ev = apply_scalar(DeviceState.new((), device="cpu"),
+                  DeviceEvent(*(torch.tensor(x, dtype=torch.int32)
+                                for x in (1, 0, 5, -1))))
+assert int(ev[1].tag) == int(sm.MsgTag.PROPOSAL)
+
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu"))
 assert not bad, bad
@@ -286,6 +320,13 @@ from agnes_tpu_torch.analysis import modelcheck as mc
 
 rep = mc.explore(mc.MCConfig(name="t", depth=4, max_round=1))
 assert rep.states > 10 and rep.complete and not rep.violations
+from agnes_tpu_torch.analysis import (Finding, RetraceError,  # noqa: F401
+                                      RetraceSentinel, signature)
+from agnes_tpu_torch.crypto import (VOTE_MSG_LEN, keypair,  # noqa: F401
+                                    proposal_signing_bytes, sign, verify,
+                                    vote_signing_bytes)
+from agnes_tpu_torch.harness import (ReplayResult, replay_trace,  # noqa: F401
+                                     trace_network)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu", "torch"))
 assert not bad, bad
@@ -326,8 +367,10 @@ import os
 import sys
 import tempfile
 
-from agnes_tpu_torch.utils import flightrec, metrics_cli
+from agnes_tpu_torch import NIL, Proposal, Vote, VoteType  # noqa: F401
+from agnes_tpu_torch.utils import Metrics, flightrec, metrics_cli
 
+assert Metrics().snapshot() is not None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "agnes_tpu", "torch"))
 assert not bad, bad
@@ -357,8 +400,9 @@ print("ANALYZERS-OK")
 
 
 def test_analyzers_import_no_jax_and_metrics_cli_no_torch():
-    """The metrics CLI and the flight recorder load no torch (they run on
-    a box whose CUDA stack failed); the schedule checker, the lint and
+    """The metrics CLI, the flight recorder, `utils.Metrics` and the
+    package-level types load no torch (they run on a box whose CUDA
+    stack failed); the schedule checker, the lint and
     lock passes and the lint CLI load no jax and nothing of the twin,
     and a schedule-checker run leaves CUDA uninitialized."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

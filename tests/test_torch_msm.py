@@ -39,7 +39,7 @@ from agnes_tpu_torch.crypto import ed25519
 from agnes_tpu_torch.crypto import ed25519_point as E
 from agnes_tpu_torch.crypto import ed25519_ref as ref
 from agnes_tpu_torch.crypto import msm as M
-from agnes_tpu_torch.crypto import verify as V
+from agnes_tpu_torch.crypto import ed25519_verify as V
 from agnes_tpu_torch.harness import fixtures as fx
 from agnes_tpu_torch.harness.device_driver import DeviceDriver
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)

@@ -11,7 +11,7 @@ the package never loads it) and is driven with ctypes:
     on the edge values 0, 1, 19, p-1, p, p+1, 2p-1, 2^255-1 and 2^256-1
     (every pair) and 200 seeded random values;
   - the whole `verify_lane<5>` and `verify_lane<4>` against
-    `verify.verify_plain`, fed by the same CPU prologue outputs, on the
+    `ed25519_verify.verify_plain`, fed by the same CPU prologue outputs, on the
     adversarial grid, the torsion and flipped-sign lanes and 32 seeded
     random lanes, and the verdicts against the RFC 8032 oracle;
 
@@ -31,7 +31,7 @@ import torch
 from agnes_tpu.crypto import ed25519_ref as jref
 from agnes_tpu_torch.crypto import ed25519
 from agnes_tpu_torch.crypto import ed25519_ref as ref
-from agnes_tpu_torch.crypto import verify as V
+from agnes_tpu_torch.crypto import ed25519_verify as V
 from agnes_tpu_torch.harness.fixtures import adversarial_grid, torsioned_sig
 from agnes_tpu_torch.scripts import verify_probe
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
