@@ -197,11 +197,22 @@ def _sha_blocks_np(r_bytes: np.ndarray, a_bytes: np.ndarray,
 
 class VoteBatcher:
     """Collects wire votes for one ingestion tick and emits dense
-    phases on `device` (default "cuda"; raises when absent)."""
+    phases on `device` (default "cuda"; raises when absent).  `heights`
+    ([I], default zeros) is the instances' starting height, `powers`
+    ([V], default ones) the validators' voting power (`set_validators`
+    changes it at a height boundary), and `held_cap` bounds the
+    future-round hold-back (default two full [I, V] ticks, at least
+    65,536 votes)."""
 
     def __init__(self, n_instances: int, n_validators: int, n_slots: int,
-                 n_rounds: int = 4, device="cuda", verify_mode: str = "lanes",
-                 msm_leaf: int = 64):
+                 heights: Optional[np.ndarray] = None,
+                 n_rounds: int = 4,
+                 powers: Optional[np.ndarray] = None,
+                 held_cap: Optional[int] = None,
+                 verify_mode: str = "lanes",
+                 msm_leaf: int = 64, *, device="cuda"):
+        if held_cap is not None and int(held_cap) <= 0:
+            raise ValueError(f"held_cap must be positive: {held_cap}")
         if verify_mode not in ("lanes", "msm"):
             raise ValueError(f"verify_mode must be lanes|msm: {verify_mode}")
         if int(msm_leaf) < 2:
@@ -215,15 +226,19 @@ class VoteBatcher:
         self.W = n_rounds
         self.slots = SlotMap(n_instances, n_slots)
         # per-instance height / window base (synced from the device)
-        self.heights = np.zeros(n_instances, np.int64)
+        self.heights = np.asarray(
+            heights if heights is not None
+            else np.zeros(n_instances, np.int64)).astype(np.int64)
         self.base_round = np.zeros(n_instances, np.int64)
-        self.powers = np.ones(n_validators, np.int64)   # set_validators
+        self.powers = (np.asarray(powers, np.int64) if powers is not None
+                       else np.ones(n_validators, np.int64))
         self._pending: List[_Batch] = []
         self._held: List[_Batch] = []          # future-round hold-back
         self._held_n = 0
         # the hold-back fills BEFORE signature verification, so it is
         # capped (an unauthenticated memory-exhaustion vector otherwise)
-        self.held_cap = max(65536, 2 * self.I * self.V)
+        self.held_cap = (int(held_cap) if held_cap is not None
+                         else max(65536, 2 * self.I * self.V))
         # device-verify build state: pubkeys for the host-fallback
         # checks + lane batches aligned with the emitted phases
         self._dv_pubkeys: Optional[np.ndarray] = None

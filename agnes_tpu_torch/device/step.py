@@ -71,7 +71,7 @@ class ExtEvent(NamedTuple):
     pol_round: torch.Tensor  # [I]
 
     @classmethod
-    def none(cls, n: int, device) -> "ExtEvent":
+    def none(cls, n: int, device="cuda") -> "ExtEvent":
         z = torch.zeros((n,), dtype=I32, device=device)
         return cls(torch.full_like(z, NULL_EVENT), z, z, z - 1)
 

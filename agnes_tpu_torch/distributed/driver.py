@@ -76,13 +76,13 @@ class _HostRejects:
 
 class DistributedDriver(DeviceDriver):
     """DeviceDriver of one pod host (module docstring).  `n_instances`
-    is the global deployment figure; the pod mesh is
+    is the global deployment figure; the pod mesh is `mesh`, or
     `make_pod_mesh(n_val, per_host, pod_group())` over the world that
-    distributed/pod.py::initialize_pod joined; the host's instance block
-    (`plan.instance_range(host)`) becomes `self.I`.  A coordinator
-    (`coordinator=`, or the one HostShard attaches) agrees every
-    dispatch; the twin's `lockstep_check` switch is left out, so no
-    dispatch skips it."""
+    distributed/pod.py::initialize_pod joined (a given mesh must have
+    that shape: val = `n_val`, data x val = `per_host`); the host's
+    instance block (`plan.instance_range(host)`) becomes `self.I`.  A
+    coordinator (`coordinator=`, or the one HostShard attaches) agrees
+    every dispatch unless `lockstep_check` is false."""
 
     def __init__(self, n_instances: int, n_validators: int,
                  n_rounds: int = 4, n_slots: int = 4,
@@ -90,13 +90,24 @@ class DistributedDriver(DeviceDriver):
                  advance_height: bool = False,
                  defer_collect: bool = False,
                  verify_chunk=None, hbm_budget_bytes: Optional[int] = None,
-                 audit=False, n_val: int = 1, per_host: int = 1,
-                 coordinator=None, device="cuda"):
+                 audit=False, n_val: int = 1, mesh=None,
+                 coordinator=None, lockstep_check: bool = True,
+                 per_host: int = 1, device="cuda"):
         from agnes_tpu_torch.device.encoding import resolve_device
 
         dev = resolve_device(device)
-        pod_mesh = make_pod_mesh(n_val, per_host, pod_group(),
-                                 device_type=dev.type)
+        if mesh is None:
+            pod_mesh = make_pod_mesh(n_val, per_host, pod_group(),
+                                     device_type=dev.type)
+        else:
+            pod_mesh = mesh
+            shape = tuple(pod_mesh.shape)
+            if (len(shape) != 3 or shape[2] != n_val
+                    or shape[1] * shape[2] != per_host):
+                raise ValueError(
+                    f"mesh {shape} is not a pod mesh of val={n_val} and "
+                    f"{per_host} ranks a host (parallel/mesh.py::"
+                    f"make_pod_mesh)")
         n_hosts, n_data, n_v = pod_mesh.shape
         if n_validators % n_v:
             raise ValueError(f"V={n_validators} does not shard over "
@@ -109,6 +120,7 @@ class DistributedDriver(DeviceDriver):
         self.plan = HostPlan(self.n_hosts, n_instances)
         self.global_I = int(n_instances)
         self.coordinator = coordinator
+        self.lockstep_check = bool(lockstep_check)
         self._reject_views: list = []
         super().__init__(self.plan.local_instances, n_validators,
                          n_rounds=n_rounds, n_slots=n_slots,
@@ -124,7 +136,7 @@ class DistributedDriver(DeviceDriver):
 
     def _agree(self, entry: str, statics, args) -> None:
         """The pre-dispatch lockstep check (module docstring)."""
-        if (self.coordinator is not None
+        if (self.coordinator is not None and self.lockstep_check
                 and self.coordinator.n_processes > 1):
             self.coordinator.agree((entry, tuple(statics), plan_sig(args)))
 

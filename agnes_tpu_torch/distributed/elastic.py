@@ -108,9 +108,6 @@ ELASTIC_MAGIC = 0x454C4131          # 'ELA1'
 EHDR = 28
 SLOT_BYTES = 16
 MAX_POD_HOSTS = 32
-#: tick slots a frame carries (the twin's default; a tick stages one
-#: build a closed batch, so a handful at most)
-MAX_SLOTS = 8
 
 
 class ElasticFrame(NamedTuple):
@@ -226,28 +223,48 @@ class ElasticShard(HostShard):
     at the same protocol points (the smoke drives a fixed tick schedule a
     height), because the tick's all_gather is a pod collective.
 
-    `membership` is the pod's MembershipEpoch over every host (no
-    rejoin holddown); `reroute_capacity`, the frame's reroute section in
-    bytes, holds 4 x the host's instances x V records.  Held gossip is
-    kept as blocks of [n, REC_SIZE] uint8 rows, global instance ids, in
-    arrival order."""
+    `membership` is the pod's MembershipEpoch (default: over every host
+    of the pod, holding a readmission `rejoin_holddown_ticks` ticks); it
+    must cover the pod's hosts and global instances.  A frame carries at
+    most `max_slots` staged builds, and its reroute section
+    `reroute_capacity` bytes (default 4 x the host's instances x V
+    records).  `clock` times the ticks and goes on to HostShard.  Held
+    gossip is kept as blocks of [n, REC_SIZE] uint8 rows, global
+    instance ids, in arrival order."""
 
-    def __init__(self, driver, batcher, pubkeys=None, **service_kwargs):
-        super().__init__(driver, batcher, pubkeys, **service_kwargs)
+    def __init__(self, driver, batcher, pubkeys=None, *,
+                 membership: Optional[MembershipEpoch] = None,
+                 rejoin_holddown_ticks: int = 0,
+                 max_slots: int = 8,
+                 reroute_capacity: Optional[int] = None,
+                 clock=time.monotonic,
+                 **service_kwargs):
+        super().__init__(driver, batcher, pubkeys, clock=clock,
+                         **service_kwargs)
         if self.n_hosts > MAX_POD_HOSTS:
             raise MembershipError(
                 f"elastic frame masks cap the pod at {MAX_POD_HOSTS} "
                 f"hosts ({self.n_hosts} configured)")
-        self.membership = MembershipEpoch(self.n_hosts, driver.global_I)
+        self.membership = membership if membership is not None else \
+            MembershipEpoch(self.n_hosts, driver.global_I,
+                            rejoin_holddown_ticks=rejoin_holddown_ticks)
+        if (self.membership.view.n_hosts != self.n_hosts
+                or self.membership.view.n_instances != driver.global_I):
+            raise MembershipError(
+                f"membership plane ({self.membership.view.n_hosts} hosts "
+                f"x {self.membership.view.n_instances} instances) does "
+                f"not match the pod ({self.n_hosts} x {driver.global_I})")
         # dead-peer verdicts degrade to leave intents from here on, and
         # resumed evidence latches the join
         self.monitor.attach_membership(self.membership)
-        self.reroute_capacity = (4 * self.plan.local_instances * driver.V
-                                 * REC_SIZE)
+        self.max_slots = int(max_slots)
+        self.reroute_capacity = (
+            int(reroute_capacity) if reroute_capacity is not None
+            else 4 * self.plan.local_instances * driver.V * REC_SIZE)
         self.frame_bytes = elastic_frame_capacity(
-            MAX_SLOTS, self._frame_cap, self.reroute_capacity)
+            self.max_slots, self._frame_cap, self.reroute_capacity)
         self._held: List[np.ndarray] = []
-        self._clock = service_kwargs.get("clock", time.monotonic)
+        self._clock = clock
         self.negotiation_ticks = 0
         self.padded_slots = 0          # slots this host padded up or into
         self.adopted_held = 0          # records held for away homes
@@ -418,7 +435,8 @@ class ElasticShard(HostShard):
                     "membership_reroute_rehold", host=self.host,
                     records=int(stray.sum()), epoch=view.epoch)
 
-    def tick(self, boundary: bool = False) -> dict:
+    def tick(self, now: Optional[float] = None,
+             boundary: bool = False) -> dict:
         """One lockstep elastic tick (module docstring): close and stage,
         negotiate shapes, decisions, intents and re-routes in one
         all_gather, pad to the merged plan, dispatch.  With
@@ -426,8 +444,10 @@ class ElasticShard(HostShard):
         intents apply after the exchange.  Every pod process calls it at
         the same protocol points, serving or sleeping: a sleeper stages
         nothing and dispatches pure padding, which keeps the pod's
-        collectives in lockstep while its ranges are away."""
-        t0 = self._clock()
+        collectives in lockstep while its ranges are away.  `now` is the
+        tick's start on the shard's clock (read from it when omitted);
+        the tick's `negotiation_wall_s` runs from it."""
+        t0 = self._clock() if now is None else now
         # the lockstep logical clock first: intents latched anywhere in
         # this tick (monitor verdicts, merged peer masks) stamp against
         # the same pod-identical counter
@@ -451,13 +471,13 @@ class ElasticShard(HostShard):
         frame = pack_elastic_frame(
             self.host, view.epoch, view.alive_mask(),
             leave_mask, join_mask, slots, dec_frame, reroute,
-            max_slots=MAX_SLOTS, reroute_cap=self.reroute_capacity)
+            max_slots=self.max_slots, reroute_cap=self.reroute_capacity)
         # 3. one all_gather: shapes + decisions + intents + re-routes;
         #    a host's ranks must have packed the same frame
         rows = self._host_rows(self.coordinator.negotiate(frame),
                                "elastic")
         frames = [unpack_elastic_frame(
-            row, MAX_SLOTS, self._frame_cap, self.reroute_capacity)
+            row, self.max_slots, self._frame_cap, self.reroute_capacity)
             for row in rows]
         # 4. statics stay loud: every host in the same epoch, looking at
         #    the same membership; anything else is a protocol fault

@@ -62,22 +62,26 @@ from agnes_tpu_torch.serve.queue import AdmitResult
 from agnes_tpu_torch.utils.metrics import POD_FOREIGN_REJECTS
 
 
-#: a peer's age since its last completed collective at which the
-#: monitor calls it a straggler / dead (the twin's HostShard ages: a
-#: healthy gap spans a step, a densify and a warmup's rungs)
-STRAGGLER_AFTER_S = 10.0
-DEAD_AFTER_S = 60.0
-
-
 class HostShard:
     """A pod process's serve front end (module docstring).  `driver` is
-    a DistributedDriver, which gets this shard's coordinator;
+    a DistributedDriver, which gets this shard's coordinator
+    (`coordinator`, default one over the pod's gloo group; it gets this
+    shard's monitor when it has none).  `monitor` defaults to a
+    StragglerMonitor that calls a peer a straggler / dead after
+    `straggler_after_s` / `dead_after_s` seconds without a completed
+    collective (a healthy gap spans a step, a densify and a warmup's
+    rungs), read on `clock`, which the VoteService reads too.
     `service_kwargs` go to VoteService (ladder, window_predictor,
     target_votes, max_delay_s, native_admission, dedup_cache, metrics,
-    flightrec, clock, ...: the whole single-host surface; the monitor
-    reads the same clock)."""
+    flightrec, ...: the whole single-host surface)."""
 
-    def __init__(self, driver, batcher, pubkeys=None, **service_kwargs):
+    def __init__(self, driver, batcher, pubkeys=None, *,
+                 coordinator: Optional[PodCoordinator] = None,
+                 monitor: Optional[StragglerMonitor] = None,
+                 dead_after_s: float = 60.0,
+                 straggler_after_s: float = 10.0,
+                 clock=time.monotonic,
+                 **service_kwargs):
         from agnes_tpu_torch.serve import VoteService
 
         self.driver = driver
@@ -85,16 +89,20 @@ class HostShard:
         self.host = driver.host
         self.n_hosts = driver.n_hosts
         self.per_host = driver.per_host
-        self.monitor = StragglerMonitor(
-            self.n_hosts, self.host, dead_after_s=DEAD_AFTER_S,
-            straggler_after_s=STRAGGLER_AFTER_S,
-            clock=service_kwargs.get("clock", time.monotonic))
-        self.coordinator = PodCoordinator(
-            monitor=self.monitor, flightrec=service_kwargs.get("flightrec"))
+        self.monitor = monitor if monitor is not None else \
+            StragglerMonitor(self.n_hosts, self.host,
+                             dead_after_s=dead_after_s,
+                             straggler_after_s=straggler_after_s,
+                             clock=clock)
+        self.coordinator = coordinator if coordinator is not None else \
+            PodCoordinator(monitor=self.monitor,
+                           flightrec=service_kwargs.get("flightrec"))
+        if self.coordinator.monitor is None:
+            self.coordinator.monitor = self.monitor
         # the driver's per-dispatch agree() rides the same coordinator
         # (one collective order for the pod)
         driver.coordinator = self.coordinator
-        self.service = VoteService(driver, batcher, pubkeys,
+        self.service = VoteService(driver, batcher, pubkeys, clock=clock,
                                    **service_kwargs)
         self.lo, self.hi = self.plan.instance_range(self.host)
         self._frame_cap = self.plan.local_instances

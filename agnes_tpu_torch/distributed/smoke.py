@@ -39,8 +39,9 @@ its last dispatch's cells, at that launch's shape, and holds it against
 the plain version on `SAMPLE_ROWS` instance rows (outside the counted
 path).
 
-`spawn_pod` (`start_pod(...).wait()`) is the parent's side: it launches
-a world's workers (and the `single` / `offline` comparison worlds, each
+`spawn_pod` (`start_pod(...).wait()` over `n_processes` hosts of
+`devices_per_host` ranks) is the parent's side: it launches a world's
+workers (and the `single` / `offline` comparison worlds, each
 with its own rendezvous), bounds them all by one wall-clock deadline
 and returns every worker's record.  The deadline is the workers' only
 bound: on its breach, or as soon as any worker fails (its peers would
@@ -67,7 +68,7 @@ PV, PC = 0, 1                   # VoteType.{PREVOTE, PRECOMMIT}
 VALUE = 7
 #: instance rows of a pod worker's last dispatch held against plain
 SAMPLE_ROWS = 16
-#: a heartbeat trail's interval
+#: a heartbeat trail's interval (the default of `--hb-interval`)
 HB_INTERVAL_S = 1.0
 #: the planner's budget on the CPU, which has no device memory to read
 CPU_HBM_BYTES = 1 << 34
@@ -292,7 +293,7 @@ def _start_host(args, shard_cls, n_phases):
     flightrec = FlightRecorder()
     hb = None
     if args.heartbeat:
-        hb = Heartbeat(args.heartbeat, interval_s=HB_INTERVAL_S,
+        hb = Heartbeat(args.heartbeat, interval_s=args.hb_interval,
                        recorder=flightrec, host_id=d.host).start()
     n_local = d.I * V
     box = {"h": 0}
@@ -488,14 +489,19 @@ def wire_range(I: int, V: int, seeds, h: int, lo: int, hi: int, typs,
     return b"".join(parts)
 
 
-def check_cycle(heights: int, leave_height, rejoin_height) -> None:
-    """The elastic mode's one leave / rejoin cycle must lie within the
-    served heights: 0 <= leave_height < rejoin_height <= heights."""
-    if leave_height is None or rejoin_height is None or not (
-            0 <= leave_height < rejoin_height <= heights):
+def check_cycle(heights: int, leave_height: int,
+                rejoin_height: int) -> bool:
+    """Whether the elastic mode runs a leave / rejoin cycle: -1 for both
+    heights means none; otherwise the cycle must lie within the served
+    heights, 0 <= leave_height < rejoin_height <= heights."""
+    if leave_height == rejoin_height == -1:
+        return False
+    if not 0 <= leave_height < rejoin_height <= heights:
         raise ValueError(
             f"elastic mode needs 0 <= leave_height < rejoin_height <= "
-            f"heights, got {leave_height}, {rejoin_height}, {heights}")
+            f"heights, or -1 for both, got {leave_height}, "
+            f"{rejoin_height}, {heights}")
+    return True
 
 
 def elastic_launches(heights: int, leave_height: int,
@@ -504,9 +510,10 @@ def elastic_launches(heights: int, leave_height: int,
     `run_elastic_worker`'s tick schedule: one a dispatched dense slot.
     Every height dispatches two slots (its prevote tick and its
     precommit tick; a sleeper's are pure padding), and the readmission
-    height one more a catch-up tick."""
-    check_cycle(heights, leave_height, rejoin_height)
-    return [2 + (rejoin_height - leave_height if h == rejoin_height else 0)
+    height of a cycle one more a catch-up tick."""
+    churn = check_cycle(heights, leave_height, rejoin_height)
+    return [2 + (rejoin_height - leave_height
+                 if churn and h == rejoin_height else 0)
             for h in range(heights + 1)]
 
 
@@ -533,8 +540,8 @@ def run_elastic_worker(args) -> dict:
 
     The tick schedule is a function of the shared arguments, so every
     process runs the same collective sequence (the lockstep contract).
-    The cycle is required (`check_cycle`) and needs a pod of two
-    hosts."""
+    With -1 for both heights there is no cycle (`check_cycle`); a cycle
+    needs a pod of two hosts."""
     _setup(args)
     from agnes_tpu_torch.distributed.pod import initialize_pod, shutdown_pod
 
@@ -547,13 +554,13 @@ def run_elastic_worker(args) -> dict:
     try:
         I, V, H = args.instances, args.validators, args.heights
         leave_h, rejoin_h = args.leave_height, args.rejoin_height
-        check_cycle(H, leave_h, rejoin_h)
+        churn = check_cycle(H, leave_h, rejoin_h)
         # heterogeneous traffic dispatches P = 2 (entry + one class) and
         # P = 3 (entry + both): warm both, then arm; padding up to the
         # negotiated max must never make a new shape
         w = _start_host(args, ElasticShard, (2, 3))
         d, shard, box, sigs = w.d, w.shard, w.box, w.sigs
-        if d.n_hosts != 2:
+        if churn and d.n_hosts != 2:
             raise RuntimeError("the leave / rejoin cycle is choreographed "
                                "for a pod of two hosts")
         synced = [0]
@@ -791,15 +798,17 @@ def main(argv=None) -> int:
                     help="validator whose votes are forged in both "
                          "classes")
     ap.add_argument("--native-admission", action="store_true")
-    ap.add_argument("--leave-height", type=int, default=None,
-                    help="elastic mode (required): the boundary height at "
-                         "which the last host departs")
-    ap.add_argument("--rejoin-height", type=int, default=None,
-                    help="elastic mode (required): the readmission "
-                         "boundary height")
+    ap.add_argument("--leave-height", type=int, default=-1,
+                    help="elastic mode: the boundary height at which the "
+                         "last host departs (-1: no leave)")
+    ap.add_argument("--rejoin-height", type=int, default=-1,
+                    help="elastic mode: the readmission boundary height "
+                         "(-1: no rejoin)")
     ap.add_argument("--out", required=True, help="result JSON path")
     ap.add_argument("--state-npz", default=None)
     ap.add_argument("--heartbeat", default=None)
+    ap.add_argument("--hb-interval", type=float, default=HB_INTERVAL_S,
+                    help="seconds between heartbeat lines")
     args = ap.parse_args(argv)
     _die_with_parent()
     if args.mode != "offline" and not args.init_method:
@@ -894,17 +903,19 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
               instances: int = 8, validators: int = 8, heights: int = 2,
               forge: Optional[int] = None, device: str = "cuda",
               out_dir: str, timeout_s: float = 1200.0,
-              heartbeat: bool = False, dump_state: bool = False,
-              native_admission: bool = False,
-              elastic: bool = False, leave_height: Optional[int] = None,
-              rejoin_height: Optional[int] = None,
+              heartbeat: bool = False, hb_interval: float = HB_INTERVAL_S,
+              dump_state: bool = False, native_admission: bool = False,
+              elastic: bool = False, leave_height: int = -1,
+              rejoin_height: int = -1,
               extra_modes: Optional[List[str]] = None,
               tag: str = "pod") -> PodRun:
     """Launch a pod of `n_processes` ranks (`per_host` a host) in
     `device` mode, each its own interpreter, rendezvous by `file://` in
     `out_dir`; `elastic=True` serves it through ElasticShard's
-    negotiated ticks (mode ``elastic``), with the leave / rejoin cycle
-    at the given boundary heights; `extra_modes` adds "single" (one host
+    negotiated ticks (mode ``elastic``), with a leave / rejoin cycle at
+    the given boundary heights (-1 for both: none; `check_cycle`);
+    heartbeat trails are stamped every `hb_interval` seconds;
+    `extra_modes` adds "single" (one host
     of `n_processes` ranks, a world of its own) and "offline" (one
     process).  Returns at once; `PodRun.wait()` bounds everything by
     `timeout_s`."""
@@ -940,7 +951,8 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
         if paths["npz"]:
             cmd += ["--state-npz", paths["npz"]]
         if paths["heartbeat"]:
-            cmd += ["--heartbeat", paths["heartbeat"]]
+            cmd += ["--heartbeat", paths["heartbeat"],
+                    "--hb-interval", str(hb_interval)]
         if native_admission and mode in ("pod", "elastic"):
             cmd.append("--native-admission")
         if mode == "elastic":
@@ -974,9 +986,31 @@ def start_pod(n_processes: int = 2, *, per_host: int = 1, n_val: int = 1,
     return PodRun(jobs, timeout_s)
 
 
-def spawn_pod(n_processes: int = 2, **kw) -> dict:
-    """`start_pod(...)` and wait for it: every worker's record."""
-    return start_pod(n_processes, **kw).wait()
+def spawn_pod(n_processes: int = 2, *, instances: int = 8,
+              validators: int = 8, heights: int = 2,
+              devices_per_host: int = 2, n_val: int = 2,
+              out_dir: str, timeout_s: float = 1200.0,
+              heartbeat: bool = False, hb_interval: float = 1.0,
+              dump_state: bool = False,
+              native_admission: bool = False,
+              elastic: bool = False, leave_height: int = -1,
+              rejoin_height: int = -1,
+              extra_modes: Optional[List[str]] = None,
+              forge: Optional[int] = None, device: str = "cuda",
+              tag: str = "pod") -> dict:
+    """A pod of `n_processes` hosts with `devices_per_host` devices each,
+    one rank a device (`start_pod(n_processes * devices_per_host,
+    per_host=devices_per_host, ...)`), waited for: every worker's
+    record, one a rank.  The other arguments are start_pod's."""
+    return start_pod(
+        n_processes * devices_per_host, per_host=devices_per_host,
+        n_val=n_val, instances=instances, validators=validators,
+        heights=heights, forge=forge, device=device, out_dir=out_dir,
+        timeout_s=timeout_s, heartbeat=heartbeat, hb_interval=hb_interval,
+        dump_state=dump_state, native_admission=native_admission,
+        elastic=elastic, leave_height=leave_height,
+        rejoin_height=rejoin_height, extra_modes=extra_modes,
+        tag=tag).wait()
 
 
 if __name__ == "__main__":

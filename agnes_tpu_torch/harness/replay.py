@@ -104,11 +104,10 @@ def replay_trace(trace: List[object], n_validators: int,
                      device=device)
     genesis = np.asarray(powers) if powers is not None \
         else np.ones(n_validators, np.int64)
-    bat = VoteBatcher(1, n_validators, n_slots=n_slots, n_rounds=n_rounds,
-                      device=device)
+    bat = VoteBatcher(1, n_validators, n_slots, n_rounds=n_rounds,
+                      powers=powers, device=device)
     if powers is not None:
         d.set_validators(powers)
-        bat.set_validators(powers)
     res = ReplayResult()
 
     def height() -> int:

@@ -65,18 +65,22 @@ def make_hierarchical_mesh(n_slices: int, n_data: int, n_val: int,
                  (SLICE_AXIS, DATA_AXIS, VAL_AXIS), device_type)
 
 
-def make_pod_mesh(n_val: int, per_host: int, group,
+def make_pod_mesh(n_val: int, per_host: int, group=None,
                   device_type: str = "cuda") -> DeviceMesh:
     """The pod's mesh over the whole world: (slice=n_hosts,
     data=per_host // n_val, val=n_val), host-major, so host h is ranks
     [h * per_host, (h + 1) * per_host) and its (data, val) sub-mesh is
     `mesh["data", "val"]`.  Checked against the machines the ranks run
     on, gathered over `group` (a process group of every rank that takes
-    CPU objects; the pod passes its gloo group, distributed/pod.py):
+    CPU objects; default the pod's gloo group, distributed/pod.py):
     every host's ranks must share one machine (an interleaved rank order
     would put one host's all_reduces across machines)."""
     import socket
 
+    if group is None:
+        from agnes_tpu_torch.distributed.pod import pod_group
+
+        group = pod_group()
     world = dist.get_world_size()
     if per_host < 1 or world % per_host:
         raise ValueError(f"{world} ranks do not split into hosts of "

@@ -1,4 +1,5 @@
-"""The port's public surface held against the JAX package's, name for name.
+"""The port's public surface held against the JAX package's, name for
+name and parameter for parameter.
 
     python3 -m agnes_tpu_torch.scripts.surface
 
@@ -19,26 +20,40 @@ or stand in `NOT_PORTED` with its reason.  A twin module without a file
 of the same path in the port must stand in `NOT_PORTED` itself, or have
 every public name there.  A package export is covered by the entry of
 the module or name it is imported from.  An entry is stale when the twin
-lacks its place or the port has it.  Prints one line a missing name or
-stale entry and a count, and exits 1 if there is any missing name or
-stale entry.  `tests/test_torch_surface.py` runs the same comparison
-case by case, and `chip_smoke.py` phase 16 runs `check()`.
+lacks its place or the port has it.
+
+Parameters: every callable both packages have (a public function, and
+`__init__` and the public methods of a public class; a dataclass's or
+NamedTuple's fields count as its parameters) is held against the twin's
+signature (`param_problems`): the twin's positional parameters, in
+order, must be the port's leading positional ones; its keyword-only
+parameters must be keyword-only in the port; a default must be there
+where the twin has one, and equal where `ast.literal_eval` reads the
+twin's; `*args` / `**kwargs` must be there exactly where the twin has
+them.  A port-only parameter must come after the twin's positional
+parameters with a default, or be keyword-only.  Each difference stands
+in `DEPARTS` with its reason, or is a problem.  A `DEPARTS` entry is
+stale when the twin lacks the parameter or the port no longer differs
+on it.
+
+Prints one line a missing name, parameter problem or stale entry and the
+counts, and exits 1 if there is any.  `tests/test_torch_surface.py` runs
+the same comparison case by case, and `chip_smoke.py` phases 16 and 17
+run `check()`.
 """
 
 from __future__ import annotations
 
 import ast
 import importlib
+import inspect
 import os
 import sys
 import types
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 PORT = "agnes_tpu_torch"
 TWIN = "agnes_tpu"
-
-#: ROADMAP §1 item 7a: these wait for the port's bench entry
-BENCH = "waits for the bench entry (item 7a): its only caller is bench.py"
 
 #: twin places the port does not offer, each with its reason: a module
 #: path relative to the package root, or "path::name" for a top-level
@@ -114,9 +129,69 @@ NOT_PORTED: Dict[str, str] = {
         "resolves whether the lane's BLS field runs on the Pallas kernels "
         "(TPU only); the port's lane runs the CUDA field kernels on the "
         "card and their plain versions on the CPU, so there is no choice",
-    "utils/config.py::RunConfig": BENCH,
-    "utils/budget.py::deadline_margin_s": BENCH,
-    "utils/budget.py::install_deadline_signals": BENCH,
+}
+
+
+#: twin parameters the port departs from by design: "path::qualname" of a
+#: callable both packages have (qualname "Class" for a dataclass's
+#: fields, "Class.method" for a method) -> {twin parameter: reason}.  A
+#: twin parameter listed here that the port lacks is taken out of the
+#: twin's order before positions are compared, so the reason says what a
+#: positional caller past it meets.
+_AXIS = ("the twin's shard_map axis name; the port's collective is an "
+         "all_reduce over a process group, `group=` (None: no reduction), "
+         "which follows advance_height and verify_chunk as a keyword")
+_DONATE = ("buffer donation is XLA's; the port's step writes its outputs "
+           "to fresh tensors, so there is nothing to donate, and a "
+           "positional caller past it meets the next parameter")
+_DEVICES = ("JAX's device list; a port mesh is one process a device over "
+            "the initialized process group, and `device_type` ('cuda' or "
+            "'cpu') takes its place")
+DEPARTS: Dict[str, Dict[str, str]] = {
+    "device/step.py::consensus_step": {"axis_name": _AXIS},
+    "device/step.py::consensus_step_seq": {"axis_name": _AXIS},
+    "device/step.py::consensus_step_seq_signed_dense": {"axis_name": _AXIS},
+    "device/step.py::honest_heights": {"axis_name": _AXIS},
+    "device/tally.py::add_votes": {"axis_name": _AXIS},
+    "harness/device_driver.py::DeviceDriver.step_async": {"donate": _DONATE},
+    "distributed/driver.py::DistributedDriver.step_async": {
+        "donate": _DONATE},
+    "parallel/sharded.py::make_sharded_step_seq": {"donate": _DONATE},
+    "parallel/sharded.py::make_sharded_step_seq_signed": {
+        "donate": _DONATE},
+    "serve/pipeline.py::ServePipeline.__init__": {"donate": _DONATE},
+    "serve/service.py::VoteService.__init__": {"donate": _DONATE},
+    "parallel/mesh.py::make_mesh": {"devices": _DEVICES},
+    "parallel/mesh.py::make_hierarchical_mesh": {"devices": _DEVICES},
+    "parallel/sharded.py::dense_lane_specs": {
+        "mesh": "the twin's PartitionSpecs name mesh axes; the port's "
+                "layout table is the same for every mesh, so it takes "
+                "none"},
+    "distributed/driver.py::make_pod_mesh": {
+        "n_val": "no default: `per_host`, the ranks of a host, follows "
+                 "it without one, since a port process is one device and "
+                 "nothing counts a host's devices as JAX does; a twin "
+                 "call without arguments raises TypeError",
+        "devices": "JAX's device list; `per_host` takes its place "
+                   "(the ranks of one host, one process a device)"},
+    "distributed/pod.py::initialize_pod": {
+        "coordinator_address": "jax.distributed's coordinator address; "
+                               "torch.distributed takes an init_method "
+                               "(`file://` or `tcp://localhost:<port>`)",
+        "num_processes": "a port process is a rank, one a device: the "
+                         "world size (`world_size`)",
+        "process_id": "a port process is a rank (`rank`)"},
+    "distributed/pod.py::PodCoordinator.__init__": {
+        "n_hosts": "the coordinator's peers are ranks, one a device "
+                   "(`n_processes`), not JAX processes of several "
+                   "devices",
+        "host": "this process's rank (`process`)"},
+    "serve/bls_lane.py::BlsLane.__init__": {
+        "pallas_field": "picks the Pallas BLS field kernels on a TPU; the "
+                        "port's lane runs the CUDA field kernels on the "
+                        "card and their plain versions on the CPU, so "
+                        "there is no choice, and a positional caller past "
+                        "it meets `clock`"},
 }
 
 
@@ -292,16 +367,259 @@ def entry_problem(key: str) -> Optional[str]:
     return None
 
 
+# -- parameters ----------------------------------------------------------------
+
+class Param(NamedTuple):
+    """One parameter: `kind` is "pos" (positional or keyword), "kw"
+    (keyword-only), "*" or "**"; `default` is NO_DEFAULT when there is
+    none and UNREAD when the twin's is not a literal."""
+
+    name: str
+    kind: str
+    default: object
+
+
+NO_DEFAULT = object()
+UNREAD = object()
+
+
+def _literal(node: Optional[ast.AST]) -> object:
+    if node is None:
+        return NO_DEFAULT
+    try:
+        return ast.literal_eval(node)
+    except (ValueError, TypeError, SyntaxError, MemoryError,
+            RecursionError):
+        return UNREAD
+
+
+def _decorators(node) -> List[str]:
+    out = []
+    for d in node.decorator_list:
+        f = d.func if isinstance(d, ast.Call) else d
+        out.append(f.attr if isinstance(f, ast.Attribute)
+                   else getattr(f, "id", ""))
+    return out
+
+
+def _args_params(a: ast.arguments, drop_first: bool) -> List[Param]:
+    pos = a.posonlyargs + a.args
+    defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+    out = [Param(p.arg, "pos", _literal(d)) for p, d in zip(pos, defaults)]
+    out = out[1:] if drop_first else out
+    if a.vararg is not None:
+        out.append(Param(a.vararg.arg, "*", NO_DEFAULT))
+    out += [Param(p.arg, "kw", _literal(d))
+            for p, d in zip(a.kwonlyargs, a.kw_defaults)]
+    if a.kwarg is not None:
+        out.append(Param(a.kwarg.arg, "**", NO_DEFAULT))
+    return out
+
+
+def _fields(node: ast.ClassDef) -> List[Param]:
+    return [Param(st.target.id, "pos", _literal(st.value))
+            for st in node.body
+            if isinstance(st, ast.AnnAssign)
+            and isinstance(st.target, ast.Name)
+            and "ClassVar" not in ast.unparse(st.annotation)]
+
+
+def twin_callables(tree: ast.Module) -> Dict[str, List[Param]]:
+    """qualname -> the twin's parameters, for its public functions, the
+    fields of its public dataclasses and NamedTuples ("Class"), and the
+    `__init__` and public methods of its public classes (properties
+    take no arguments and are left out)."""
+    out: Dict[str, List[Param]] = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                and not node.name.startswith("_"):
+            out[node.name] = _args_params(node.args, False)
+        if not isinstance(node, ast.ClassDef) or node.name.startswith("_"):
+            continue
+        if "dataclass" in _decorators(node) or any(
+                getattr(b, "id", getattr(b, "attr", None)) == "NamedTuple"
+                for b in node.bases):
+            out[node.name] = _fields(node)
+        for m in node.body:
+            if not isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    or (m.name.startswith("_") and m.name != "__init__"):
+                continue
+            decs = _decorators(m)
+            if "property" in decs or "setter" in decs:
+                continue
+            out[f"{node.name}.{m.name}"] = _args_params(
+                m.args, "staticmethod" not in decs)
+    return out
+
+
+_KINDS = {inspect.Parameter.POSITIONAL_ONLY: "pos",
+          inspect.Parameter.POSITIONAL_OR_KEYWORD: "pos",
+          inspect.Parameter.VAR_POSITIONAL: "*",
+          inspect.Parameter.KEYWORD_ONLY: "kw",
+          inspect.Parameter.VAR_KEYWORD: "**"}
+
+
+def port_params(module: str, qualname: str) -> List[Param]:
+    """The port's parameters of `qualname` in `module`, by
+    `inspect.signature` (a method's `self` dropped)."""
+    obj = owner = importlib.import_module(module)
+    for part in qualname.split("."):
+        owner, obj = obj, getattr(obj, part)
+    drop = (isinstance(owner, type) and "." in qualname
+            and not isinstance(inspect.getattr_static(
+                owner, qualname.rsplit(".", 1)[1]),
+                (staticmethod, classmethod)))
+    params = list(inspect.signature(obj).parameters.values())
+    return [Param(p.name, _KINDS[p.kind],
+                  NO_DEFAULT if p.default is inspect.Parameter.empty
+                  else p.default)
+            for p in params[1 if drop else 0:]]
+
+
+def _same(a, b) -> bool:
+    return type(a) is type(b) and a == b
+
+
+def param_problems(twin: List[Param], port: List[Param],
+                   departs: Optional[Dict[str, str]] = None
+                   ) -> Dict[str, str]:
+    """{parameter: what differs} between the twin's and the port's
+    parameters of one callable (module docstring).  `departs` names the
+    twin parameters the port departs from by design: one the port lacks
+    leaves the twin's order before positions are compared, unless a
+    port-only positional parameter takes its place (a rename: that
+    parameter passes, and the twin's is reported at its position)."""
+    departs = departs or {}
+    out: Dict[str, str] = {}
+    pnames = {p.name: p for p in port}
+    tnames = {p.name for p in twin}
+    ppos = [p for p in port if p.kind == "pos"]
+    # a departed twin parameter the port lacks: a port-only parameter in
+    # its place stands in for it (a rename); otherwise it is dropped
+    tpos: List[Param] = []
+    stand_ins = set()
+    for t in twin:
+        if t.kind != "pos":
+            continue
+        if t.name in departs and t.name not in pnames:
+            i = len(tpos)
+            if i < len(ppos) and ppos[i].name not in tnames:
+                stand_ins.add(ppos[i].name)
+                tpos.append(t)
+            continue
+        tpos.append(t)
+    for i, t in enumerate(tpos):
+        if i >= len(ppos) or ppos[i].name != t.name:
+            there = ppos[i].name if i < len(ppos) else "nothing"
+            out[t.name] = (f"positional {i} in the twin; the port has "
+                           f"{there} there")
+    for t in twin:
+        p = pnames.get(t.name)
+        if t.kind in ("*", "**"):
+            if not any(q.kind == t.kind for q in port):
+                out[t.name] = f"the twin takes {t.kind}{t.name}"
+            continue
+        if p is None:
+            out.setdefault(t.name, "the port lacks it")
+            continue
+        if t.kind == "kw" and p.kind != "kw":
+            out[t.name] = "keyword-only in the twin, not in the port"
+        if t.default is not NO_DEFAULT:
+            if p.default is NO_DEFAULT:
+                out.setdefault(t.name, "the twin has a default, the port "
+                               "none")
+            elif t.default is not UNREAD and not _same(t.default,
+                                                       p.default):
+                out.setdefault(t.name, f"default {t.default!r} in the "
+                               f"twin, {p.default!r} in the port")
+    for p in port:
+        if p.kind in ("*", "**"):
+            if not any(t.kind == p.kind for t in twin):
+                out[p.name] = f"the port takes {p.kind}{p.name}, the " \
+                              f"twin does not"
+            continue
+        if p.name in tnames or p.name in stand_ins or p.kind == "kw":
+            continue
+        i = ppos.index(p)
+        if i < len(tpos) or p.default is NO_DEFAULT:
+            out[p.name] = (f"port-only positional {i} must come after the "
+                           f"twin's {len(tpos)} with a default, or be "
+                           f"keyword-only")
+    return out
+
+
+def _port_callables(rel: str) -> Dict[str, List[Param]]:
+    """The twin's callables of `rel` that the port has too and no
+    NOT_PORTED entry covers -> the twin's parameters."""
+    if not os.path.exists(os.path.join(REPO, PORT, rel)):
+        return {}
+    mod = port_module(rel)
+    return {q: ps for q, ps in twin_callables(parse(rel)).items()
+            if not excluded(f"{rel}::{q}") and resolves(mod, q)}
+
+
+def check_params(rel: str) -> dict:
+    """One twin module's callables against the port's: how many, the
+    differences DEPARTS does not cover ("module.qualname: parameter:
+    what differs") and the number it does."""
+    mod = port_module(rel)
+    problems, departed = [], 0
+    calls = _port_callables(rel)
+    for q, twin in calls.items():
+        dep = DEPARTS.get(f"{rel}::{q}", {})
+        for name, why in param_problems(twin, port_params(mod, q),
+                                        dep).items():
+            if name in dep:
+                departed += 1
+            else:
+                problems.append(f"{mod}.{q}: {name}: {why}")
+    return {"callables": len(calls), "problems": problems,
+            "departed": departed}
+
+
+def departs_problem(key: str) -> Optional[str]:
+    """Why a DEPARTS entry is stale (None when it holds): the twin and
+    the port must both have the callable, each parameter must be the
+    twin's, and the port must still differ on it, with a reason."""
+    rel, _, qual = key.partition("::")
+    if not os.path.exists(os.path.join(TWIN_DIR, rel)):
+        return f"the twin has no {rel}"
+    twin = twin_callables(parse(rel)).get(qual)
+    if twin is None:
+        return f"the twin's {rel} has no callable {qual}"
+    if qual not in _port_callables(rel):
+        return f"the port has no {port_module(rel)}.{qual}"
+    entry = DEPARTS[key]
+    found = param_problems(twin, port_params(port_module(rel), qual), entry)
+    for name, why in entry.items():
+        if not why.strip():
+            return f"{name}: no reason given"
+        if name not in {p.name for p in twin}:
+            return f"the twin's {qual} takes no {name}"
+        if name not in found:
+            return f"the port no longer differs on {name}"
+    return None
+
+
 def check() -> dict:
-    """The whole comparison: counts, the missing names and the stale
-    NOT_PORTED entries."""
+    """The whole comparison: counts, the missing names, the stale
+    NOT_PORTED entries, the parameter problems and the stale DEPARTS
+    entries."""
     mods = twin_modules()
     reps = [check_module(rel) for rel in mods]
+    params = [check_params(rel) for rel in mods
+              if not excluded(rel)]
     stale = {k: p for k in NOT_PORTED if (p := entry_problem(k)) is not None}
+    stale_departs = {k: p for k in DEPARTS
+                     if (p := departs_problem(k)) is not None}
     return {"modules": len(mods), "names": sum(r["names"] for r in reps),
             "excluded": sum(len(r["excluded"]) for r in reps),
             "missing": [n for r in reps for n in r["missing"]],
-            "stale": stale}
+            "stale": stale,
+            "callables": sum(r["callables"] for r in params),
+            "departed": sum(r["departed"] for r in params),
+            "param_problems": [n for r in params for n in r["problems"]],
+            "stale_departs": stale_departs}
 
 
 def main() -> int:
@@ -310,10 +628,18 @@ def main() -> int:
         print(f"missing: {name}")
     for key, why in rep["stale"].items():
         print(f"stale NOT_PORTED entry {key}: {why}")
+    for line in rep["param_problems"]:
+        print(f"parameter: {line}")
+    for key, why in rep["stale_departs"].items():
+        print(f"stale DEPARTS entry {key}: {why}")
     print(f"{rep['modules']} twin modules, {rep['names']} names, "
           f"{rep['excluded']} not ported by NOT_PORTED, "
-          f"{len(rep['missing'])} missing, {len(rep['stale'])} stale")
-    return 1 if rep["missing"] or rep["stale"] else 0
+          f"{len(rep['missing'])} missing, {len(rep['stale'])} stale; "
+          f"{rep['callables']} callables, {rep['departed']} parameters "
+          f"departed by DEPARTS, {len(rep['param_problems'])} parameter "
+          f"problems, {len(rep['stale_departs'])} stale")
+    return 1 if (rep["missing"] or rep["stale"] or rep["param_problems"]
+                 or rep["stale_departs"]) else 0
 
 
 if __name__ == "__main__":

@@ -474,8 +474,7 @@ class BlsLane:
                  max_delay_s: float = 0.005,
                  quarantine_after: int = 3,
                  device_pairing: Optional[bool] = None,
-                 device="cuda",
-                 clock=time.monotonic):
+                 clock=time.monotonic, device="cuda"):
         self.registry = registry
         self.device = resolve_device(device)
         self.table = BlsClassTable(registry, n_instances,

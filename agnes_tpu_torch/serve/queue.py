@@ -36,7 +36,7 @@ import collections
 import hashlib
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -143,7 +143,10 @@ class NativePhases:
     #                            permutation (the phase-grouped order)
     heights: np.ndarray        # [I] int64 window the build assumed
     base_round: np.ndarray     # [I] int64
-    slot_lut: np.ndarray       # [I, S] int64 slot LUT the build assumed
+    slot_lut: np.ndarray = field(kw_only=True)
+    #                            [I, S] int64 slot LUT the build assumed
+    #                            (keyword-only: a port field the twin's
+    #                            positional order lacks)
 
 
 def _record_digests(wire_bytes, idx: np.ndarray) -> np.ndarray:

@@ -7,20 +7,27 @@
   tracing.py      host spans (chrome-trace JSON, bounded ring, stable
                   thread ids, tick flow events) + `span`, which names a
                   region for torch.profiler and as an NVTX range.
-  budget.py       the verify planner (lane chunks from the card's memory).
+  budget.py       the verify planner (lane chunks from the card's memory)
+                  and the wall-clock deadline (discovery, alarm margin,
+                  TERM / ALRM handlers).
   metrics.py      counters, gauges, log-bucket latency histograms and the
                   serve plane's metric names.
   flightrec.py    the flight recorder's event ring and NDJSON heartbeat.
   metrics_http.py the Prometheus `/metrics` endpoint over a registry.
   metrics_cli.py  the heartbeat post-mortem / schema-check CLI.
+  config.py       the typed run configuration (validators, instances,
+                  mesh shape, timeouts, dtypes), its bridge factories
+                  and CLI parsing.
 
 `checkpoint` and `tracing` import torch, so their names below resolve
 on first access (a module `__getattr__`) and importing this package
 loads no torch: the metrics CLI and the flight recorder must run on a
-box whose CUDA stack is what failed.  `Metrics` is a plain import:
-`metrics.py` is stdlib-only.
+box whose CUDA stack is what failed.  `Metrics` and `RunConfig` are
+plain imports: `metrics.py` is stdlib-only, and `config.py` imports the
+bridges it builds only when it builds one.
 """
 
+from agnes_tpu_torch.utils.config import RunConfig  # noqa: F401
 from agnes_tpu_torch.utils.metrics import Metrics  # noqa: F401
 
 #: lazily exported names -> their module

@@ -21,10 +21,9 @@ discovered (`Deadline.discover`: an env override, else the tightest
 enclosing coreutils `timeout N` found by walking the ancestors in
 /proc, minus its elapsed time), so a bounded run such as the model
 checker's CLI (analysis/modelcheck.py) reports a clean partial instead
-of being killed.  Waiting for the benchmark entry: the twin's
-`deadline_margin_s`, `install_deadline_signals` and the bench defaults
-of `Deadline.discover` (`env_var="AGNES_BENCH_DEADLINE_S"`,
-`default_s`); here the caller names its variable.
+of being killed.  `install_deadline_signals` arms SIGTERM and a last-resort
+SIGALRM `deadline_margin_s` before a finite deadline, so a bounded run
+emits its verdict even when it is about to be killed from outside.
 """
 
 from __future__ import annotations
@@ -32,8 +31,9 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import signal
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -114,11 +114,12 @@ def _floor_pow2(n: int) -> int:
     return 1 << (n.bit_length() - 1)
 
 
-def device_hbm_bytes(device="cuda") -> int:
-    """The card's total memory in bytes (`torch.cuda.mem_get_info`).
+def device_hbm_bytes(device=None) -> int:
+    """The card's total memory in bytes (`torch.cuda.mem_get_info`;
+    `device` None: the current card).
     A CPU device has no memory budget: ValueError (RuntimeError, as
     everywhere in the port, when CUDA is asked for and absent)."""
-    dev = resolve_device(device)
+    dev = resolve_device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise ValueError(f"no device memory budget on {dev}: pass "
                          f"hbm_bytes (hbm_budget_bytes on the driver)")
@@ -394,10 +395,11 @@ class Deadline:
         return cls(at=time.monotonic() + seconds, source=source)
 
     @classmethod
-    def discover(cls, env_var: str) -> "Deadline":
+    def discover(cls, env_var: str = "AGNES_BENCH_DEADLINE_S",
+                 default_s: Optional[float] = None) -> "Deadline":
         """The enclosing wall-clock budget, in preference order: the
         seconds in `env_var`; an ancestor `timeout N` found via /proc
-        (minus its elapsed time); unbounded."""
+        (minus its elapsed time); `default_s`; unbounded."""
         env = os.environ.get(env_var)
         if env:
             try:
@@ -407,6 +409,8 @@ class Deadline:
         rem = enclosing_timeout_remaining()
         if rem is not None:
             return cls.after(max(0.0, rem), source="proc:timeout")
+        if default_s is not None:
+            return cls.after(default_s, source="default")
         return cls.none()
 
     def remaining(self) -> float:
@@ -421,3 +425,36 @@ class Deadline:
         if self.at is None:
             return want
         return max(0.0, min(want, self.remaining() - margin))
+
+
+def deadline_margin_s(rem: float) -> float:
+    """The alarm margin for a finite remaining budget of `rem` seconds:
+    the gap between "every derived work cap has ended" and the
+    last-resort SIGALRM.  A caller that caps its own work with
+    `Deadline.cap(..., margin=deadline_margin_s(rem))` ends that work
+    before `install_deadline_signals`' alarm fires, because both sides
+    subtract this number."""
+    return min(30.0, max(5.0, rem * 0.2))
+
+
+def install_deadline_signals(callback: Callable[[int], None],
+                             deadline: Deadline,
+                             margin_s: Optional[float] = None) -> float:
+    """Arm SIGTERM and SIGALRM with `callback(signum)` and, for a finite
+    deadline, schedule an alarm `margin_s` (default `deadline_margin_s`)
+    before it: the last-resort guarantee that a verdict is emitted even
+    when the process is about to be killed from outside (coreutils
+    `timeout` sends SIGTERM first; the alarm fires even if that TERM
+    never reaches the process through an intermediate shell).  Returns
+    the scheduled alarm delay in whole seconds (0.0: no alarm).  Call
+    from the main thread."""
+    signal.signal(signal.SIGTERM, lambda sn, fr: callback(sn))
+    signal.signal(signal.SIGALRM, lambda sn, fr: callback(sn))
+    rem = deadline.remaining()
+    if not math.isfinite(rem):
+        return 0.0
+    if margin_s is None:
+        margin_s = deadline_margin_s(rem)
+    delay = max(1, int(rem - margin_s))
+    signal.alarm(delay)
+    return float(delay)

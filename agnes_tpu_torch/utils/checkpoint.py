@@ -202,13 +202,11 @@ def load_batcher(path: str, device="cuda"):
 
     with np.load(path) as z:
         m = z["meta"]
-        bat = VoteBatcher(int(m[0]), int(m[1]), n_slots=int(m[3]),
-                          n_rounds=int(m[2]), device=device,
+        bat = VoteBatcher(int(m[0]), int(m[1]), int(m[3]),
+                          heights=z["heights"], n_rounds=int(m[2]),
+                          powers=z["powers"], held_cap=int(m[4]),
                           verify_mode=str(z["verify_mode"]),
-                          msm_leaf=int(m[5]))
-        bat.set_validators(z["powers"])
-        bat.held_cap = int(m[4])
-        bat.heights = z["heights"].astype(np.int64)
+                          msm_leaf=int(m[5]), device=device)
         bat.base_round = z["base_round"].astype(np.int64)
         (bat.rejected_signature, bat.rejected_malformed,
          bat.overflow_votes, bat.dropped_stale_height,

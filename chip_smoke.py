@@ -377,6 +377,24 @@ Drives `agnes_tpu_torch` (never the JAX package) on the card:
      the parity test checks (read as source with `ast`, never imported)
      resolves in the port by import and `hasattr`, or stands in
      `NOT_PORTED`; nothing is called.
+  17. the run configuration on the card (`config_phase`), at phase 3's
+     shape, seeds, keys and signatures (1,024 x 1,000, 2,048,000 lanes,
+     validator 7 forged): (a) `RunConfig(n_instances=1024,
+     n_validators=1000).validate().make_batcher()` -> `add_arrays` ->
+     `build_phases_device` -> `DeviceDriver.step_seq_signed`, beside a
+     `VoteBatcher` given the same arguments positionally in the twin's
+     order: phases, lanes, state and tally leaves and decisions equal,
+     and equal to phase 3's, 2 x I rejected, one verify launch a build,
+     the kernel equal to plain on 16,384 sampled lanes (forged ones among
+     them); (b) `make_native_loop(pubkeys, powers)` -> `push` ->
+     `build_phases` -> `step_seq`: one launch, its verdict-filtered
+     phases equal to the config batcher's `build_phases(pubkeys)` on the
+     same columns (the device-verify phases of (a) still carry the forged
+     lanes, which the step drops), its state, tally and decisions equal
+     to (a)'s; (c) `make_native_loop` refuses `verify_mode="msm"`,
+     `RunConfig.from_args` gives the flags back, and `surface.check()`
+     reports 0 missing names, 0 parameter problems and 0 stale entries.
+     It logs each part's seconds.
 
 Prints a JSON line of kernel numbers (rows 4-5 with every timed shape;
 rows 1, 4 and 5 with `launches_serve_phase`, phase 8's launches; row
@@ -391,7 +409,9 @@ and with `launches_elastic_phase`, the elastic drill's, and its numbers
 under `pod`, and with `launches_mc_phase`, phase 14's card runs', and its
 numbers under `mc`, and phase 15's wall, observed shapes and pass times
 under `analysis_*`, and with `launches_surface_phase`, phase 16's two
-heights' launches, and its walls under `surface`),
+heights' launches, and its walls under `surface`, and with
+`launches_config_phase`, phase 17's launches through the bridges
+`RunConfig` built, and its seconds under `config`),
 the `nvidia-smi` name/power line,
 and last `{"ok": true, "device": {...}}`.  Any failed check raises:
 the exit code is non-zero and no result line is printed.  Exits 1
@@ -3646,7 +3666,8 @@ def _pod_run(tag: str, n_processes: int, per_host: int, n_val: int,
     Any worker's error or a deadline kill fails the phase."""
     from agnes_tpu_torch.distributed.smoke import spawn_pod
 
-    res = spawn_pod(n_processes, per_host=per_host, n_val=n_val,
+    res = spawn_pod(n_processes // per_host, devices_per_host=per_host,
+                    n_val=n_val,
                     instances=I_SIGNED, validators=V_SIGNED,
                     heights=SERVE_HEIGHTS - 1, forge=FORGED,
                     device=DEVICE, out_dir=os.path.join(tmp, tag),
@@ -3936,7 +3957,7 @@ def _elastic_drill(ref: dict, tmp: str, card: str, shared: bool) -> dict:
     I, Vn, EH = I_SIGNED, V_SIGNED, ELASTIC_HEIGHTS
     local = I // POD_HOSTS
     t0 = time.perf_counter()
-    res = spawn_pod(POD_HOSTS, per_host=1, n_val=1, instances=I,
+    res = spawn_pod(POD_HOSTS, devices_per_host=1, n_val=1, instances=I,
                     validators=Vn, heights=EH, forge=FORGED, device=DEVICE,
                     out_dir=os.path.join(tmp, "d"), timeout_s=POD_JOIN_S,
                     heartbeat=True, dump_state=True, elastic=True,
@@ -4565,6 +4586,204 @@ def surface_phase(seeds, pubkeys, sigs) -> dict:
                 "apply_scalar_cases": len(cases), "apply_scalar_s": t_scalar,
                 "twin_names": rep["names"], "not_ported": rep["excluded"],
                 "names_s": t_names, "phase_s": wall}}
+
+
+def config_phase(seeds, pubkeys, sigs, classes, lane_ref) -> dict:
+    """Phase 17: the run configuration on the card; see the module
+    docstring.  Returns the phase's numbers for the verify kernel's
+    line."""
+    import numpy as np
+    import torch
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.bridge.native_ingest import pack_wire_votes
+    from agnes_tpu_torch.crypto import ed25519_verify as V
+    from agnes_tpu_torch.harness import fixtures as fx
+    from agnes_tpu_torch.harness.device_driver import DeviceDriver
+    from agnes_tpu_torch.scripts import surface
+    from agnes_tpu_torch.utils import RunConfig
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    I, Vn = I_SIGNED, V_SIGNED
+    cols = [fx.full_mesh_cols(I, Vn, seeds, 0, typ, VALUE, sigs=sigs[c])
+            for c, typ in enumerate(classes)]
+    cfg = RunConfig(n_instances=I, n_validators=Vn).validate()
+    checks = {}
+
+    def device_height(make):
+        """One height through `make()`'s batcher: add_arrays ->
+        build_phases_device -> step_seq_signed, with the verify launches
+        of this run alone."""
+        torch.cuda.synchronize()
+        V.LAUNCHES = 0
+        t0 = time.perf_counter()
+        bat = make()
+        for c in cols:
+            bat.add_arrays(*c)
+        phases, lanes = bat.build_phases_device(pubkeys, phase_offset=1)
+        t_build = time.perf_counter() - t0
+        drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+        drv.step_seq_signed([drv.empty_phase()] + [p for p, _ in phases],
+                            lanes)
+        torch.cuda.synchronize()
+        return dict(bat=bat, phases=phases, lanes=lanes, drv=drv,
+                    launches=V.LAUNCHES, build=t_build,
+                    wall=time.perf_counter() - t0)
+
+    def same_phases(a, b) -> bool:
+        return len(a) == len(b) and all(
+            na == nb and all(torch.equal(x, y) for x, y in zip(pa, pb))
+            for (pa, na), (pb, nb) in zip(a, b))
+
+    # -- (a) RunConfig.make_batcher against the twin's positional order --
+    t0 = time.perf_counter()
+    got = device_height(cfg.make_batcher)
+    # (n_instances, n_validators, n_slots, heights, n_rounds, powers,
+    #  held_cap, verify_mode, msm_leaf): the twin's order, device default
+    direct = device_height(lambda: VoteBatcher(I, Vn, 4, None, 4, None,
+                                               None, "lanes", 64))
+    t_a = time.perf_counter() - t0
+    walls = [(h["build"], h["wall"]) for h in (got, direct)]
+    checks["(a) the config's batcher is the direct one's shape and "
+           "policy, on the card"] = all(
+        getattr(got["bat"], k) == getattr(direct["bat"], k)
+        for k in ("I", "V", "W", "held_cap", "verify_mode", "msm_leaf")) \
+        and got["bat"].device.type == "cuda"
+    checks["(a) both builds took the device-verify path"] = (
+        got["lanes"] is not None and direct["lanes"] is not None
+        and len(got["phases"]) == len(direct["phases"]) == 2)
+    checks["(a) phases equal leaf for leaf"] = same_phases(
+        got["phases"], direct["phases"])
+    checks["(a) lanes equal leaf for leaf"] = checks[
+        "(a) both builds took the device-verify path"] and all(
+        torch.equal(x, y) for x, y in zip(got["lanes"], direct["lanes"]))
+    leaves = _leaves(got["drv"])
+    checks["(a) state and tally equal leaf for leaf, and to phase 3's"] = (
+        _same_leaves(leaves, _leaves(direct["drv"]))
+        and _same_leaves([x.cpu() for x in leaves], lane_ref["leaves"]))
+    dec = _decisions(got["drv"], got["bat"].decode_slot)
+    ref3 = lane_ref["stats"]
+    checks["(a) decisions equal the direct build's and phase 3's: every "
+           "instance decided value 7 in round 0"] = (
+        _same_decisions(dec, _decisions(direct["drv"],
+                                        direct["bat"].decode_slot))
+        and np.array_equal(dec[0], ref3["decided"])
+        and np.array_equal(got["drv"].stats.decision_value,
+                           ref3["decision_value"])
+        and np.array_equal(dec[2], ref3["decision_round"])
+        and bool(dec[0].all()) and set(dec[1].tolist()) == {VALUE}
+        and not dec[2].any())
+    checks["(a) rejected == 2I on both, as in phase 3"] = (
+        got["drv"].rejected_signature_device
+        == direct["drv"].rejected_signature_device
+        == lane_ref["rejected"] == 2 * I)
+    checks["(a) one verify launch a build"] = \
+        got["launches"] == direct["launches"] == 1
+    # the kernel against its plain version on a sample of the lanes
+    n_lanes = 2 * I * Vn
+    lanes = got["lanes"]
+    idx = torch.from_numpy(np.random.RandomState(SEED + 17).choice(
+        n_lanes, N_SERVE_SAMPLE, replace=False)).to(dev)
+    idx[:2] = torch.tensor([FORGED, I * Vn + FORGED], device=dev)
+    args, _ = V.prologue(lanes.pub[idx], lanes.sig[idx], lanes.blocks[idx])
+    mism, max_err = compare(V.verify_signed5(*args), V.verify_plain(*args))
+    checks["(a) kernel == plain on the sampled lanes"] = mism == 0
+    del args, lanes, direct
+    got.pop("lanes")
+    # -- (b) RunConfig.make_native_loop: push -> build_phases ------------
+    wires = [pack_wire_votes(*c) for c in cols]
+    torch.cuda.synchronize()
+    V.LAUNCHES = 0
+    t0 = time.perf_counter()
+    loop = cfg.make_native_loop(pubkeys, np.ones(Vn, np.int64))
+    drv = DeviceDriver(I, Vn, advance_height=True, device=dev)
+    loop.sync_device(drv.tally.base_round.cpu().numpy(),
+                     drv.state.height.cpu().numpy())
+    for w in wires:
+        loop.push(w)
+    phases = loop.build_phases()
+    t_loop_build = time.perf_counter() - t0
+    drv.step_seq([drv.empty_phase()] + [p for p, _ in phases])
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    loop_launches = V.LAUNCHES
+    # the verdict-filtered phases of the same wire through the config's
+    # batcher (`build_phases(pubkeys)`; its verify launch counted apart)
+    t0 = time.perf_counter()
+    ref = cfg.make_batcher()
+    for c in cols:
+        ref.add_arrays(*c)
+    want = ref.build_phases(pubkeys)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    checks["(b) the loop's phases == the config batcher's verdict-filtered "
+           "build, leaf for leaf"] = same_phases(phases, want)
+    checks["(b) state and tally == (a)'s leaf for leaf, decisions equal"] = (
+        _same_leaves(_leaves(drv), leaves)
+        and _same_decisions(_decisions(drv, loop.decode_slot), dec))
+    checks["(b) one verify launch, 2I rejected"] = (
+        loop_launches == 1
+        and loop.counters["rejected_signature"] == 2 * I)
+    del phases, want, ref, loop, drv, leaves, got
+    # -- (c) the refusals, the flags and the surface -------------------
+    t0 = time.perf_counter()
+    try:
+        RunConfig(n_instances=I, n_validators=Vn,
+                  verify_mode="msm").validate().make_native_loop(pubkeys)
+        refused = False
+    except ValueError:
+        refused = True
+    checks["(c) make_native_loop refuses verify_mode='msm'"] = refused
+    argv = ["--validators", str(Vn), "--instances", str(I), "--rounds", "3",
+            "--slots", "2", "--mesh", "4x2", "--float-dtype", "float32",
+            "--verify-mode", "msm", "--held-cap", "65536",
+            "--checkpoint-dir", "ckpt", "--checkpoint-every", "5"]
+    checks["(c) from_args gives the flags' values back"] = \
+        RunConfig.from_args(argv) == RunConfig(
+            n_validators=Vn, n_instances=I, n_rounds=3, n_slots=2,
+            mesh=(4, 2), float_dtype="float32", verify_mode="msm",
+            held_cap=65536, checkpoint_dir="ckpt", checkpoint_every_steps=5)
+    rep = surface.check()
+    checks["(c) surface: 0 missing names, 0 parameter problems, 0 stale "
+           "entries"] = (rep["missing"] == [] and rep["stale"] == {}
+                         and rep["param_problems"] == []
+                         and rep["stale_departs"] == {})
+    t_c = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    if not all(checks.values()):
+        raise AssertionError(f"config phase failed: {checks}; parameter "
+                             f"problems {rep['param_problems']}, stale "
+                             f"{rep['stale_departs']}")
+    log(f"[config] (a) RunConfig(n_instances={I}, n_validators={Vn})"
+        f".make_batcher(): build {walls[0][0]:.3f} s, with the step "
+        f"{walls[0][1]:.3f} s; VoteBatcher(I, V, 4, None, 4, None, None, "
+        f"'lanes', 64): build {walls[1][0]:.3f} s, with the step "
+        f"{walls[1][1]:.3f} s; {n_lanes} lanes and one launch each; phases, "
+        f"lanes, leaves and decisions equal (and to phase 3's), rejected "
+        f"{2 * I}; kernel == plain on {N_SERVE_SAMPLE} sampled lanes; "
+        f"{t_a:.3f} s")
+    log(f"[config] (b) make_native_loop(pubkeys, powers): push + "
+        f"build_phases {t_loop_build:.3f} s, with the step {t_b:.3f} s, "
+        f"{loop_launches} launch; phases == the config batcher's "
+        f"build_phases(pubkeys) ({t_ref:.3f} s, its launch apart), "
+        f"leaves == (a)'s")
+    log(f"[config] (c) msm refused, from_args round trip, surface: "
+        f"{rep['callables']} callables, {rep['departed']} parameters in "
+        f"DEPARTS ({len(surface.DEPARTS)} entries), 0 problems; "
+        f"{t_c:.2f} s")
+    log(f"[config] phase 17 {wall:.1f} s; every check held: {len(checks)}")
+    return {"launches_config_phase": 1 + loop_launches,
+            "config": {"a_s": t_a, "a_build_s": walls[0][0],
+                       "a_wall_s": walls[0][1], "a_direct_build_s":
+                       walls[1][0], "a_direct_wall_s": walls[1][1],
+                       "b_s": t_b, "b_build_s": t_loop_build,
+                       "b_reference_s": t_ref,
+                       "c_s": t_c, "phase_s": wall,
+                       "sample_lanes": N_SERVE_SAMPLE,
+                       "sample_max_abs_err": max_err,
+                       "callables": rep["callables"],
+                       "departed": rep["departed"]}}
 
 
 def main(argv=None) -> int:
@@ -5245,7 +5464,6 @@ def main(argv=None) -> int:
     rows["ed25519_verify_signed5"].update(dense_mesh_phase(
         seeds, pubkeys, sigs, lane_ref, north_decisions, s_sigs, serve_ref,
         bound))
-    del lane_ref
     torch.cuda.empty_cache()
 
     # -- phase 13: the static pod and the elastic drill ------------------
@@ -5263,6 +5481,13 @@ def main(argv=None) -> int:
     # -- phase 16: the public surface on the card ------------------------
     rows["ed25519_verify_signed5"].update(surface_phase(seeds, pubkeys,
                                                         sigs))
+    torch.cuda.empty_cache()
+
+    # -- phase 17: the run configuration on the card ---------------------
+    rows["ed25519_verify_signed5"].update(config_phase(
+        seeds, pubkeys, sigs, classes, lane_ref))
+    del lane_ref
+    torch.cuda.empty_cache()
     log(f"[total] {time.perf_counter() - t_all:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 

@@ -12,7 +12,11 @@ pipeline's refusal of a multi-rank mesh without a coordinator, a pod
 of one process (a one-rank gloo world in process) served end to end
 through DistributedDriver and HostShard, and the spawner's bounds: it
 stops every worker at the first failure, and a worker dies with the
-process that spawned it.
+process that spawned it.  Last the twin's parameters: HostShard's
+coordinator, monitor, ages and clock (its monitor's verdicts against the
+twin's StragglerMonitor), DistributedDriver's `mesh` and
+`lockstep_check`, and `spawn_pod`'s hosts of `devices_per_host` devices,
+`hb_interval` and -1 heights against the twin's launches.
 """
 
 import dataclasses
@@ -438,3 +442,157 @@ def test_worker_dies_with_its_parent():
             "_die_with_parent; _die_with_parent(); " + sleep)
     assert _orphan_fate(tied, 30.0) == "killed"
     assert _orphan_fate(sleep, 2.0) == "survived"
+
+
+# -- the twin's parameters -----------------------------------------------------
+
+class _Service:
+    """The slice of VoteService that HostShard and ElasticShard build
+    touches; records what the shard passed."""
+
+    def __init__(self, driver, batcher, pubkeys, **kw):
+        from agnes_tpu_torch.utils.metrics import Metrics
+
+        self.kw = kw
+        self.metrics = Metrics()
+        self.flightrec = kw.get("flightrec")
+
+
+def _stub_driver(n_hosts=2, host=0, n_instances=8, V=4):
+    return SimpleNamespace(plan=td.HostPlan(n_hosts, n_instances),
+                           host=host, n_hosts=n_hosts, per_host=1,
+                           global_I=n_instances, V=V, coordinator=None)
+
+
+@pytest.fixture
+def stub_service(monkeypatch):
+    import agnes_tpu_torch.serve as serve
+
+    monkeypatch.setattr(serve, "VoteService", _Service, raising=False)
+
+
+def test_host_shard_ages_a_peer_as_the_twin_monitor(stub_service):
+    """HostShard(coordinator=, dead_after_s=, straggler_after_s=, clock=):
+    the coordinator it is given gets its monitor, the clock reaches the
+    service, and over one script of beats and clock steps its monitor's
+    verdicts are the twin's StragglerMonitor's with the same ages."""
+    clk = {"t": 50.0}
+
+    def clock():
+        return clk["t"]
+
+    d = _stub_driver()
+    coord = td.PodCoordinator(n_processes=2, process=0)
+    shard = td.HostShard(d, None, None, coordinator=coord,
+                         dead_after_s=20.0, straggler_after_s=4.0,
+                         clock=clock, max_delay_s=1.0)
+    assert shard.coordinator is coord is d.coordinator
+    assert coord.monitor is shard.monitor
+    assert shard.service.kw == {"clock": clock, "max_delay_s": 1.0}
+    j = jd.StragglerMonitor(2, 0, dead_after_s=20.0, straggler_after_s=4.0,
+                            clock=clock)
+    t = shard.monitor
+    for step, dt in enumerate([1.0, 3.5, 1.0, 6.0, 2.0, 12.0, 1.0]):
+        clk["t"] += dt
+        if step == 2:
+            t.beat(1)
+            j.beat(1)
+        assert (t.stragglers(), t.dead(), t.ages()) == \
+            (j.stragglers(), j.dead(), j.ages())
+    assert t.dead() == [1]
+    _raises_both(t.check, j.check, td.DeadHostError, jd.DeadHostError)
+
+
+def test_host_shard_defaults_and_a_given_monitor(stub_service):
+    """The defaults are the twin's ages (60 s dead, 10 s straggler) on
+    time.monotonic; a given monitor is used as is and handed to a given
+    coordinator that has none."""
+    d = _stub_driver()
+    shard = td.HostShard(d, None, None,
+                         coordinator=td.PodCoordinator(n_processes=2,
+                                                       process=0))
+    m = shard.monitor
+    assert (m.dead_after_s, m.straggler_after_s, m._clock) == \
+        (60.0, 10.0, time.monotonic)
+    assert shard.service.kw == {"clock": time.monotonic}
+    mine = td.StragglerMonitor(2, 0)
+    coord = td.PodCoordinator(n_processes=2, process=0)
+    shard = td.HostShard(d, None, None, coordinator=coord, monitor=mine)
+    assert shard.monitor is mine and coord.monitor is mine
+    theirs = td.StragglerMonitor(2, 0)
+    coord = td.PodCoordinator(n_processes=2, process=0, monitor=theirs)
+    shard = td.HostShard(d, None, None, coordinator=coord, monitor=mine)
+    assert coord.monitor is theirs
+
+
+def test_driver_mesh_and_lockstep_switch(pod_of_one):
+    """DistributedDriver(mesh=, lockstep_check=) on a one-rank gloo pod:
+    a pod mesh of the driver's shape is taken as given and one of
+    another raises; with the switch off `_agree` skips the coordinator,
+    as the twin's does."""
+    from agnes_tpu_torch.parallel.mesh import make_pod_mesh
+
+    mesh = make_pod_mesh(1, 1, device_type="cpu")
+    d = td.DistributedDriver(2, 4, mesh=mesh, device="cpu")
+    assert d.pod_mesh is mesh and d.lockstep_check
+    with pytest.raises(ValueError, match="pod mesh"):
+        td.DistributedDriver(2, 4, mesh=mesh, per_host=2, device="cpu")
+
+    class Coord:
+        n_processes = 2
+
+        def __init__(self):
+            self.tags = []
+
+        def agree(self, tag):
+            self.tags.append(tag)
+
+    for switch, n in ((True, 1), (False, 0)):
+        c = Coord()
+        d = td.DistributedDriver(2, 4, coordinator=c, lockstep_check=switch,
+                                 device="cpu")
+        d._agree("entry", (1,), ())
+        assert len(c.tags) == n and d.lockstep_check is switch
+
+
+def test_spawn_pod_launches_the_twins_pod(monkeypatch, tmp_path):
+    """spawn_pod with the twin's arguments and defaults (2 hosts of 2
+    devices, n_val 2, `hb_interval`, -1 for no leave / rejoin) launches
+    one rank a twin device, each told the twin's heartbeat interval and
+    cycle; no process is started (subprocess.Popen is stubbed)."""
+    from agnes_tpu.distributed import smoke as js
+    from agnes_tpu_torch.distributed import smoke as ts
+
+    cmds = {"agnes_tpu.distributed.smoke": [],
+            "agnes_tpu_torch.distributed.smoke": []}
+
+    def popen(cmd, **kw):
+        cmds[cmd[cmd.index("-m") + 1]].append(cmd)
+        return SimpleNamespace(poll=lambda: 0, wait=lambda timeout=None: 0,
+                               returncode=0, kill=lambda: None)
+
+    monkeypatch.setattr(ts.subprocess, "Popen", popen)   # both modules'
+    kw = dict(out_dir=str(tmp_path), heartbeat=True, hb_interval=0.25,
+              elastic=True)
+    js.spawn_pod(**kw)
+    res = ts.spawn_pod(device="cpu", **kw)
+    assert len(res["pod"]) == 4 and all("error" in r for r in res["pod"])
+
+    def flag(cmd, name):
+        return cmd[cmd.index(name) + 1]
+
+    twin = cmds["agnes_tpu.distributed.smoke"]
+    port = cmds["agnes_tpu_torch.distributed.smoke"]
+    assert len(port) == len(twin) * int(flag(twin[0], "--devices-per-host"))
+    for cmd in port:
+        assert (flag(cmd, "--n-processes"), flag(cmd, "--per-host"),
+                flag(cmd, "--n-val")) == ("4", "2", "2")
+        for name in ("--hb-interval", "--leave-height", "--rejoin-height",
+                     "--instances", "--validators", "--heights"):
+            assert flag(cmd, name) == flag(twin[0], name), name
+    assert flag(port[0], "--leave-height") == "-1"
+    assert ts.check_cycle(2, -1, -1) is False
+    assert ts.elastic_launches(2, -1, -1) == [2, 2, 2]
+    assert ts.elastic_launches(4, 2, 3) == [2, 2, 2, 3, 2]
+    with pytest.raises(ValueError):
+        ts.check_cycle(4, 2, -1)

@@ -17,7 +17,12 @@ padding primitives, and a one-rank elastic pod in process.
   warmup's shapes (the armed tripwire passes it), and `warmup_covers`
   refuses an unwarmed P;
 * a one-rank gloo elastic pod (a `file://` rendezvous) served through
-  `tick`.
+  `tick`;
+* the twin's parameters on a real ElasticShard of a two-host pod over a
+  stub driver and service: `reroute_capacity` / `max_slots` (held and
+  dropped records against the twin's routing shard), `rejoin_holddown_
+  ticks` (against the twin's MembershipEpoch), `membership` (checked
+  against the pod) and `clock`; and `tick(now)` on the one-rank pod.
 """
 
 import numpy as np
@@ -533,3 +538,124 @@ def test_elastic_pod_of_one_serves_through_ticks(pod_of_one):
     assert shard.coordinator.negotiations == 4
     snap = shard.metrics.snapshot()
     assert snap["pod_membership_epoch"] == 0
+
+
+# -- the twin's parameters -----------------------------------------------------
+
+class _Service(_SinkService):
+    """The VoteService an ElasticShard builds, reduced to the screen's
+    slice (metrics, flight recorder, submit)."""
+
+    def __init__(self, driver, batcher, pubkeys, **kw):
+        from agnes_tpu_torch.utils.metrics import Metrics
+
+        super().__init__()
+        self.kw = kw
+        self.metrics = Metrics()
+
+
+def _two_host_shard(monkeypatch, per=3, **kw):
+    """A real ElasticShard of host 0 in a pod of two hosts, built over a
+    stub driver and a stub service (no process group, no device)."""
+    from types import SimpleNamespace
+
+    import agnes_tpu_torch.serve as serve
+    from agnes_tpu_torch.distributed import pod as tpod
+
+    monkeypatch.setattr(serve, "VoteService", _Service, raising=False)
+    d = SimpleNamespace(plan=tt.HostPlan(2, 2 * per), host=0, n_hosts=2,
+                        per_host=1, global_I=2 * per, V=4, coordinator=None)
+    return te.ElasticShard(d, None, None,
+                           coordinator=tpod.PodCoordinator(2, 0), **kw)
+
+
+def test_reroute_capacity_drops_as_the_twin_routing_shard(monkeypatch):
+    """ElasticShard(reroute_capacity=64 * REC_SIZE, max_slots=5): the
+    frame is sized from both, and with host 1 departed the screen holds
+    64 of its 100 records and drops the rest, counter for counter and
+    record for record with the twin's routing shard of the same capacity
+    (tests/test_elastic.py's)."""
+    sh = _two_host_shard(monkeypatch, reroute_capacity=64 * REC_SIZE,
+                         max_slots=5)
+    assert sh.frame_bytes == te.elastic_frame_capacity(5, 3, 64 * REC_SIZE)
+    assert sh.announce_leave(1)
+    assert sh.membership.boundary() is not None
+    j = _routing_shard("twin", 0, _departed("twin", 2, 3, 1), cap=64)
+    wire = np.concatenate([_rec(3 + k % 3) for k in range(100)]).tobytes()
+    for s in (sh, j):
+        s.submit(wire)
+        s.submit(wire[:10 * REC_SIZE])
+    assert _counters(sh) == _counters(j)
+    assert (sh.adopted_held, sh.held_dropped) == (64, 46)
+    np.testing.assert_array_equal(_held(sh), _held(j))
+
+
+@pytest.mark.parametrize("holddown", [0, 3])
+def test_rejoin_holddown_holds_as_the_membership_epoch(monkeypatch,
+                                                       holddown):
+    """ElasticShard(rejoin_holddown_ticks=) builds the membership with
+    that holddown: a departed host's rejoin is deferred tick for tick as
+    the twin's MembershipEpoch defers it."""
+    sh = _two_host_shard(monkeypatch, rejoin_holddown_ticks=holddown)
+    j = jm.MembershipEpoch(2, 6, rejoin_holddown_ticks=holddown)
+    assert sh.announce_leave(1) == j.note_leave(1)
+    assert (sh.membership.boundary() is None) == (j.boundary() is None)
+    got = []
+    for _ in range(holddown + 2):
+        sh.membership.note_tick()
+        j.note_tick()
+        got.append((sh.announce_join(1), j.note_join(1)))
+    assert [a for a, _ in got] == [b for _, b in got]
+    assert [a for a, _ in got].index(True) == max(holddown - 1, 0)
+    assert sh.membership.deferred_joins == j.deferred_joins
+
+
+def test_membership_must_match_the_pod(monkeypatch):
+    """A given membership is used as is when it covers the pod's hosts
+    and instances, and refused (MembershipError) otherwise, as the twin
+    refuses it; the clock reaches the service and the tick."""
+    ep = tm.MembershipEpoch(2, 6)
+
+    def clock():
+        return 7.0
+
+    sh = _two_host_shard(monkeypatch, membership=ep, clock=clock)
+    assert sh.membership is ep and sh.monitor.membership is ep
+    assert sh.service.kw["clock"] is clock and sh._clock is clock
+    for bad in (tm.MembershipEpoch(3, 6), tm.MembershipEpoch(2, 8)):
+        with pytest.raises(tm.MembershipError, match="does not match"):
+            _two_host_shard(monkeypatch, membership=bad)
+
+
+def test_tick_reads_its_first_argument_as_now(pod_of_one):
+    """`tick(now=None, boundary=False)`: the twin's `shard.tick(t)` is a
+    plain tick started at t (the port once read t as `boundary`).  On a
+    one-rank gloo pod a latched leave stays pending through `tick(t)`,
+    whose wall runs from t on the shard's clock, and a boundary tick
+    then settles it."""
+    import inspect
+
+    from agnes_tpu_torch.bridge.ingest import VoteBatcher
+    from agnes_tpu_torch.distributed import DistributedDriver, ElasticShard
+    from agnes_tpu_torch.serve import ShapeLadder
+
+    for cls in (je.ElasticShard, ElasticShard):
+        bound = inspect.signature(cls.tick).bind(None, 5.0)
+        bound.apply_defaults()
+        assert dict(bound.arguments, self=None) == {
+            "self": None, "now": 5.0, "boundary": False}
+    clk = {"t": 100.0}
+    d = DistributedDriver(I, V, advance_height=True, defer_collect=True,
+                          device="cpu", hbm_budget_bytes=HBM)
+    shard = ElasticShard(
+        d, VoteBatcher(I, V, 4, device="cpu"), None,
+        clock=lambda: clk["t"], target_votes=2 * I * V, max_delay_s=1e9,
+        ladder=ShapeLadder.plan_dense(I, V, min_rung=16, hbm_bytes=HBM))
+    assert shard.announce_leave()
+    res = shard.tick(90.0)
+    assert not res["boundary"] and res["negotiation_wall_s"] == 10.0
+    assert shard.membership.pending() == (1, 0)
+    res = shard.tick(boundary=True)
+    assert res["negotiation_wall_s"] == 0.0
+    assert shard.membership.pending() == (0, 0) and shard.serving
+    assert shard.negotiation_ticks == 2

@@ -86,3 +86,52 @@ def test_build_phases_vs_jax_bridge(seed):
     assert n_phases > 5 and n_events > 0 and n_held > 0
     assert tb.overflow_votes > 0
     assert tb.rejected_malformed > 0 and tb.dropped_stale_height > 0
+
+
+def test_positional_heights_read_as_the_twin_reads_them():
+    """The twin's fourth positional parameter is `heights`: the port once
+    took `n_rounds` there, so `VoteBatcher(I, V, S, heights)` silently
+    ran a window of `heights` rounds from height 0.  Both packages now
+    read the same arguments the same way, and a build at those heights
+    drops the same stale votes."""
+    heights = np.array([2, 0, 1, 3, 2, 2], np.int64)
+    tb = VoteBatcher(I, V, S, heights, device="cpu")
+    jb = JBatcher(I, V, S, heights)
+    assert (tb.W, jb.W) == (4, 4)
+    np.testing.assert_array_equal(tb.heights, jb.heights)
+    rng = np.random.RandomState(7)
+    cols = list(_traffic(rng, heights, np.zeros(I, np.int64)))
+    cols[2] = np.maximum(cols[2] - (rng.rand(len(cols[2])) < 0.4), 0)
+    tb.add_arrays(*cols)
+    jb.add_arrays(*cols)
+    _same_phases(tb.build_phases(), jb.build_phases())
+    assert tb.dropped_stale_height == jb.dropped_stale_height > 0
+
+
+@pytest.mark.parametrize("held_cap", [None, 9])
+def test_constructor_state_equals_twin(held_cap):
+    """`heights`, `n_rounds`, `powers`, `held_cap`, `verify_mode` and
+    `msm_leaf`, passed positionally in the twin's order, set the state
+    the twin's do; future rounds past the cap are dropped as the twin
+    drops them."""
+    powers = np.array([3, 1, 2, 1, 1], np.int64)
+    args = (I, V, S, np.ones(I, np.int64), 2, powers, held_cap, "lanes", 8)
+    tb, jb = VoteBatcher(*args, device="cpu"), JBatcher(*args)
+    for f in ("I", "V", "W", "held_cap", "verify_mode", "msm_leaf"):
+        assert getattr(tb, f) == getattr(jb, f), f
+    np.testing.assert_array_equal(tb.powers, jb.powers)
+    np.testing.assert_array_equal(tb.heights, jb.heights)
+    n = 40
+    cols = (np.arange(n) % I, np.arange(n) % V, np.ones(n, np.int64),
+            np.arange(n) % 7, np.zeros(n, np.int64), np.full(n, 3))
+    tb.add_arrays(*cols)
+    jb.add_arrays(*cols)
+    _same_phases(tb.build_phases(), jb.build_phases())
+    assert tb._held_n == jb.held_votes > 0
+    assert tb.dropped_held_overflow == jb.dropped_held_overflow
+    for bad in (dict(held_cap=0), dict(verify_mode="batch"),
+                dict(msm_leaf=1)):
+        with pytest.raises(ValueError):
+            JBatcher(I, V, S, **bad)
+        with pytest.raises(ValueError):
+            VoteBatcher(I, V, S, device="cpu", **bad)

@@ -1,5 +1,5 @@
 """The port's public surface against the JAX package's, name for name
-(`agnes_tpu_torch/scripts/surface.py`).
+and parameter for parameter (`agnes_tpu_torch/scripts/surface.py`).
 
 The JAX package is read as source text with `ast`, never imported.  One
 case a package `__init__.py` (the names it imports, its `__all__`, the
@@ -8,6 +8,11 @@ and their public methods): each name must resolve in `agnes_tpu_torch`
 at the same relative path, by import and `hasattr`, or stand in
 `surface.NOT_PORTED` with its reason.  One case a `NOT_PORTED` entry:
 the twin has its place, the port has not, and the reason is stated.
+One case a module's parameters: every callable both packages have takes
+the twin's parameters (order, keyword-only names, literal defaults,
+`*args` / `**kwargs`), or the difference stands in `surface.DEPARTS`;
+one case a `DEPARTS` entry: the twin has the parameter and the port
+still differs on it.
 """
 
 import pytest
@@ -37,11 +42,18 @@ def test_not_ported_entry_holds(key):
 
 
 def test_only_the_bench_entry_names_wait():
+    """No NOT_PORTED entry waits for the bench entry: RunConfig and the
+    budget's deadline half are ported, and the bench entry itself is no
+    name of the twin package."""
     waiting = sorted(k for k, why in surface.NOT_PORTED.items()
-                     if why == surface.BENCH)
-    assert waiting == ["utils/budget.py::deadline_margin_s",
-                       "utils/budget.py::install_deadline_signals",
-                       "utils/config.py::RunConfig"]
+                     if "bench" in why.lower())
+    assert waiting == []
+    for key in ("utils/config.py::RunConfig",
+                "utils/budget.py::deadline_margin_s",
+                "utils/budget.py::install_deadline_signals"):
+        assert surface.excluded(key) is None
+        rel, _, name = key.partition("::")
+        assert surface.resolves(surface.port_module(rel), name)
 
 
 def test_collector_reads_imports_all_and_lazy_maps():
@@ -65,7 +77,83 @@ def test_collector_reads_imports_all_and_lazy_maps():
     assert len(PACKAGES) == 11 and "types.py" in PLAIN
     assert "BlsClassTable.pending_shares" in surface.module_names(
         surface.parse("serve/bls_lane.py"))
-    assert surface.excluded("utils/config.py::RunConfig.from_args") == \
-        surface.BENCH
+    assert surface.excluded("utils/config.py::RunConfig.from_args") is None
     assert surface.excluded("crypto/msm_jax.py::verify_batch_msm_jit")
     assert surface.excluded("serve/bls_lane.py::BlsLane.poll") is None
+
+
+PORTED = [m for m in MODULES if not surface.excluded(m)]
+
+
+@pytest.mark.parametrize("rel", PORTED)
+def test_module_parameters_match_the_twin(rel):
+    rep = surface.check_params(rel)
+    assert rep["problems"] == [], rep
+
+
+@pytest.mark.parametrize("key", sorted(surface.DEPARTS))
+def test_departs_entry_holds(key):
+    assert surface.departs_problem(key) is None
+
+
+P = surface.Param
+NO = surface.NO_DEFAULT
+
+
+@pytest.mark.parametrize("twin, port, want", [
+    # the twin's 4th positional lands elsewhere in the port
+    ([P("a", "pos", NO), P("heights", "pos", None), P("n", "pos", 4)],
+     [P("a", "pos", NO), P("n", "pos", 4), P("device", "pos", "cuda")],
+     {"heights", "n", "device"}),
+    # the same with the port's extra keyword-only: closed
+    ([P("a", "pos", NO), P("heights", "pos", None)],
+     [P("a", "pos", NO), P("heights", "pos", None),
+      P("device", "kw", "cuda")], set()),
+    # a port-only positional with no default
+    ([P("n", "pos", NO)], [P("n", "pos", NO), P("device", "pos", NO)],
+     {"device"}),
+    # keyword-only in the twin, positional in the port
+    ([P("a", "pos", NO), P("clock", "kw", surface.UNREAD)],
+     [P("a", "pos", NO), P("clock", "pos", None)], {"clock"}),
+    # a different literal default; a missing default; an unread one
+    ([P("x", "pos", 1.0), P("y", "pos", None), P("z", "pos",
+                                                 surface.UNREAD)],
+     [P("x", "pos", 1), P("y", "pos", NO), P("z", "pos", object())],
+     {"x", "y"}),
+    # **kwargs on one side only
+    ([P("a", "pos", NO)], [P("a", "pos", NO), P("kw", "**", NO)], {"kw"}),
+    ([P("a", "pos", NO), P("kw", "**", NO)], [P("a", "pos", NO)], {"kw"}),
+])
+def test_param_problems_find_each_kind_of_difference(twin, port, want):
+    assert set(surface.param_problems(twin, port)) == want
+
+
+def test_departed_parameter_leaves_the_order_or_is_renamed():
+    """A departed twin parameter the port lacks is dropped from the
+    twin's order (no cascade), or, with a port-only parameter in its
+    place, renamed; either way only it is reported."""
+    twin = [P("a", "pos", NO), P("donate", "pos", True),
+            P("tick", "pos", None)]
+    dropped = [P("a", "pos", NO), P("tick", "pos", None)]
+    assert set(surface.param_problems(twin, dropped,
+                                      {"donate": "x"})) == {"donate"}
+    assert set(surface.param_problems(twin, dropped)) == {"donate", "tick"}
+    renamed = [P("a", "pos", NO), P("device_type", "pos", "cuda"),
+               P("tick", "pos", None)]
+    assert set(surface.param_problems(twin, renamed,
+                                      {"donate": "x"})) == {"donate"}
+
+
+def test_twin_callables_read_functions_methods_and_fields():
+    calls = surface.twin_callables(surface.parse("bridge/ingest.py"))
+    names = [p.name for p in calls["VoteBatcher.__init__"]]
+    assert names[:4] == ["n_instances", "n_validators", "n_slots",
+                         "heights"]
+    fields = surface.twin_callables(surface.parse("utils/config.py"))
+    assert [p.name for p in fields["RunConfig"]][:2] == ["n_validators",
+                                                         "n_instances"]
+    assert fields["RunConfig"][0].default == 1000
+    assert fields["RunConfig"][5].default is surface.UNREAD   # timeouts
+    tick = surface.twin_callables(surface.parse("distributed/elastic.py"))
+    assert [p.name for p in tick["ElasticShard.tick"]] == ["now",
+                                                           "boundary"]
